@@ -1,0 +1,86 @@
+"""Conv/BN/leaky-ReLU building blocks (PyTorch counterpart of
+``dis_yolo_tpu/models/layers.py``).
+
+Tensors are NCHW inside the network; the model's public outputs keep the
+JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
+
+  * the conv runs in the compute dtype (bf16 on the card), with Flax's
+    ``'SAME'`` padding: a stride-2 3x3 conv on an even side pads (0, 1),
+    not PyTorch's symmetric (1, 1);
+  * BatchNorm runs in float32 on the conv output cast up, eps 1e-5, and
+    the result is cast back to the compute dtype before the leaky ReLU;
+  * momentum maps exactly: Flax keeps ``0.997 * old``, PyTorch keeps
+    ``(1 - momentum) * old``, so momentum 0.003.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_MOMENTUM = 1.0 - 0.997
+BN_EPS = 1e-5
+
+
+def leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    return torch.maximum(alpha * x, x)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of an NCHW tensor."""
+    b, c, h, w = x.shape
+    x = x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2)
+    return x.reshape(b, c, 2 * h, 2 * w)
+
+
+def _same_pad(size: int, kernel: int, stride: int):
+    """(low, high) padding of XLA's 'SAME' along one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int):
+    """Conv2d with Flax 'SAME' padding (asymmetric where XLA's is)."""
+    k = weight.shape[-1]
+    ph = _same_pad(x.shape[2], k, stride)
+    pw = _same_pad(x.shape[3], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]))
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, weight, bias, stride, 0)
+
+
+class ConvBN(nn.Module):
+    """3x3/1x1 conv (no bias) + BatchNorm + leaky-ReLU."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 stride: int = 1, alpha: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, features, kernel, stride, bias=False)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.stride = stride
+        self.alpha = alpha
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
+                      self.stride)
+        x = self.bn(x.float()).to(self.dtype)
+        return leaky_relu(x, self.alpha)
+
+
+class ConvBias(nn.Module):
+    """1x1 head conv with bias, no BN, no activation (layers 59/67/75/82)."""
+
+    def __init__(self, cin: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, features, 1, bias=True)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
+                         self.conv.bias.to(self.dtype), 1)
