@@ -84,9 +84,11 @@ class DISYoloConfig:
     # ---- precision and kernels --------------------------------------------
     compute_dtype: str = "bfloat16"   # conv compute dtype; BN runs in f32
     param_dtype: str = "float32"
-    # the port's assembly always runs its CUDA kernel on CUDA tensors
+    # the port's assembly always runs its CUDA kernel on CUDA tensors; False
+    # (the JAX package's gather path) is not ported
     use_pallas_assembly: bool = True
     # ---- not ported yet: serving-graph variants and training knobs ---------
+    # (`check_ported` refuses the graph variants among them)
     deploy: bool = False
     quant: bool = False
     quant_calibrate: bool = False
@@ -152,6 +154,17 @@ class DISYoloConfig:
     def data_path(self, phase: str) -> str:
         return os.path.join(self.dataset, phase)
 
+    def check_ported(self) -> None:
+        """Raise if a field selects a graph the port does not have yet, so
+        such a config never runs as the plain default model."""
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name in UNPORTED_GRAPH_FIELDS:
+            value = getattr(self, name)
+            if value != defaults[name]:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported to dis_yolo_tpu_torch "
+                    f"yet (only the default {defaults[name]!r} is)")
+
     def replace(self, **kw) -> "DISYoloConfig":
         return dataclasses.replace(self, **kw)
 
@@ -162,5 +175,10 @@ class DISYoloConfig:
             lines.append("{}: {}".format(f.name.upper(), getattr(self, f.name)))
         return "\n".join(lines) + "\n"
 
+
+# fields of the serving graph whose non-default values the port lacks
+UNPORTED_GRAPH_FIELDS = ("use_pallas_assembly", "deploy", "quant",
+                         "quant_calibrate", "s2d_stem", "remat",
+                         "decoder_commute")
 
 DEFAULT_CONFIG = DISYoloConfig()

@@ -101,6 +101,7 @@ def predict_from_outputs(cfg: DISYoloConfig, raws: Sequence, windows,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The post-forward half of ``predict``: raw head outputs -> detections
     + assembled masks (decode, NMS, degenerate-box drop, assembly)."""
+    cfg.check_ported()
     dev = resolve_device(device)
     raws = [_to_device(r, dev) for r in raws]
     windows = _to_device(windows, dev).float()

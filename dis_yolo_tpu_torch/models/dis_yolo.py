@@ -10,8 +10,9 @@ Flax modules, so the weight bridge (``models/weights.py``) maps names 1:1.
 The public outputs keep the JAX layouts and dtype: raw heads
 ``[B, H/s, W/s, 3, 5+C]`` and score maps ``[B, S, S, k^2]``, NHWC, all
 float32.  Inside, the convs run NCHW on a channels-last view of the NHWC
-input.  Not ported yet: ``decoder_commute``, ``deploy``, ``quant``,
-``s2d_stem``, ``remat`` and ``stop_stage``.
+input.  Not ported yet, and refused by ``cfg.check_ported()``:
+``decoder_commute``, ``deploy``, ``quant``, ``s2d_stem`` and ``remat``;
+``stop_stage`` is not an argument here.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ class DISYolo(nn.Module):
 
     def __init__(self, cfg: DISYoloConfig):
         super().__init__()
+        cfg.check_ported()
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
         for idx, kind, cin, feat, kernel, stride in _layer_specs(cfg):

@@ -80,6 +80,26 @@ def test_entry_points_reject_tensors_on_another_device():
         api.forward(model, images, device="cpu")
 
 
+@pytest.mark.parametrize("field,value", [
+    ("use_pallas_assembly", False), ("deploy", True), ("quant", True),
+    ("quant_calibrate", True), ("s2d_stem", True), ("remat", True),
+    ("decoder_commute", True)])
+def test_unported_config_raises(field, value):
+    """A config that selects a graph the port lacks raises: it never runs
+    as the plain default model."""
+    cfg = DISYoloConfig(image_size=64)
+    bad = cfg.replace(**{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        api.create_model(bad, device="cpu")
+    raws = [np.zeros((1, g, g, 3, 8), np.float32) for g in cfg.grid_sizes()]
+    raws.append(np.zeros((1, 32, 32, 9), np.float32))
+    windows = np.array([[0.0, 0.0, 1.0, 1.0]], np.float32)
+    with pytest.raises(NotImplementedError, match=field):
+        api.predict_from_outputs(bad, raws, windows, device="cpu")
+    dets, masks = api.predict_from_outputs(cfg, raws, windows, device="cpu")
+    assert dets.shape == (1, 30, 6) and masks.shape == (1, 30, 32, 32)
+
+
 def test_cuda_wrappers_never_fall_back(monkeypatch):
     """CPU tensors take the plain version without building anything; any
     other placement raises before a kernel is built, never falls back."""
