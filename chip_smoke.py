@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -9,34 +10,53 @@ Phases (any failure exits non-zero before the last line is printed):
      hand-written kernels of ``dis_yolo_tpu_torch/csrc`` with nvcc for
      sm_90a (one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version, on the card, at the
-     main path's shapes: K1 (mask assembly) logits bit-exact and sigmoid
+     main paths' shapes: K1 (mask assembly) logits bit-exact and sigmoid
      within 1e-6 inside the box, exact 0 outside, at S=288 (B=2, D=30,
      padding rows), S=576 and k=5/7; K2 (NMS) index-exact at K=512, B=2,
      with mixed classes, forced score ties and overlapping boxes (and at
-     K=1024 and K=100, the shared-memory and ragged-word edges);
-  3. the slice: the full-width 576^2 model (Darknet-53, 3 heads, stride-2
-     decoder, bf16 compute, seeded random weights) through ``predict`` +
-     ``paste_masks_batch`` at B=1 and B=2, with the defaults (K1) and with
-     ``use_pallas_nms`` (K1+K2): identical outputs, 30 detections in image
-     0, launch counters > 0; then the float32 path (TF32 off) against the
-     CPU forward and against the plain assembly on the same raw outputs;
+     K=1024 and K=100, the shared-memory and ragged-word edges); K3 (the
+     assembly backward) bit-exact at S=288 (B=2, R=10, zero-box ROIs),
+     S=576 (R=4) and k=5/7, K1's pixel-box mode bit-exact on the same
+     ROIs, and the training assembly's score-map gradient (K1 forward,
+     K3 backward) within 1e-6 relative of autograd through the plain
+     gather;
+  3. the serving slice: the full-width 576^2 model (Darknet-53, 3 heads,
+     stride-2 decoder, bf16 compute, seeded random weights) through
+     ``predict`` + ``paste_masks_batch`` at B=1 and B=2, with the
+     defaults (K1) and with ``use_pallas_nms`` (K1+K2): identical
+     outputs, 30 detections in image 0, launch counters > 0; then the
+     float32 path (TF32 off) against the CPU forward and against the
+     plain assembly on the same raw outputs;
+     the training slice: ``make_train_step`` at 576^2, B=2, on a seeded
+     synthetic batch in the loader's wire format (uint8 images, packed
+     masks): three steps of stage 1 (layers 1-52 locked), then two of
+     stage 2 (nothing locked) from stage 1's weights: finite metrics,
+     locked layers bit-unchanged, every unlocked layer moved, K1 and K3
+     launched; one step with ``use_pallas_nms`` gives the same metrics
+     as without it; then one float32 step's loss and score-map gradient
+     (TF32 off) against the CPU's;
   4. timing with CUDA events: forward, predict and predict+paste ms at
-     576^2 B=1 and B=2; each kernel and its plain version on the main
-     path's captured inputs, as device time per call from CUDA-graph
-     replays (hot L2: the inputs were just written, as on the main path),
-     beside its bound; one torch.profiler window of predict + paste at
-     B=1 for the device's busy time, its idle share and the top kernels.
+     576^2 B=1 and B=2, and train-step ms at B=2 for both stages; each
+     kernel and its plain version on the main paths' captured inputs, as
+     device time per call from CUDA-graph replays (hot L2: the inputs
+     were just written, as on the main path), beside its bound; one
+     torch.profiler window of predict + paste at B=1 and one of a
+     stage-2 train step, for the device's busy time, its idle share and
+     the top kernels.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
-Neither kernel has a single PyTorch call computing the same function, so
-``library_ms`` is null for both.
+Each kernel's ``launches`` is the sum over the serving and the training
+path, and ``launches_by_path`` holds each path's own count (each read
+from its run, with the counters set to 0 just before it).  No kernel has a single PyTorch call computing the same function, so
+``library_ms`` is null for each.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -113,6 +133,9 @@ def capturing(captured: dict, *targets):
     inside the block; the originals are back in place on the way out."""
     saved = [(module, name, getattr(module, name)) for module, name in targets]
     for module, name, fn in saved:
+        # wraps copies the launch counter: a wrapped kernel's own body
+        # counts on the module global, which is the wrapper meanwhile
+        @functools.wraps(fn)
         def wrapper(*a, _fn=fn, _name=name, **kw):
             captured[_name] = (a, kw)
             return _fn(*a, **kw)
@@ -127,7 +150,8 @@ def capturing(captured: dict, *targets):
 def kernel_kind(name: str) -> str:
     """Coarse class of a device kernel, from its name."""
     n = name.lower()
-    for kind, keys in (("K1 assembly", ("assembly_kernel",)),
+    for kind, keys in (("K3 assembly backward", ("assembly_bwd_kernel",)),
+                       ("K1 assembly", ("assembly_kernel",)),
                        ("K2 nms", ("nms_kernel",)),
                        ("batchnorm", ("bn_fw",)),
                        ("conv/gemm", ("xmma", "conv", "gemm", "cutlass")),
@@ -184,6 +208,92 @@ def check_assembly(torch, cuda_assembly, gen, b, s, k, d, n_pad):
     return err
 
 
+def random_px_boxes(torch, gen, b, r, s, n_zero):
+    """[b,r,4] rounded yxyx score-map pixel boxes (ROIs), the last
+    ``n_zero`` zero (padded proposals) and the first inverted (empty)."""
+    u = torch.rand((b, r, 4), generator=gen)
+    y1, y2 = torch.minimum(u[..., 0], u[..., 2]), torch.maximum(u[..., 0], u[..., 2])
+    x1, x2 = torch.minimum(u[..., 1], u[..., 3]), torch.maximum(u[..., 1], u[..., 3])
+    boxes = torch.round(torch.stack([y1, x1, y2, x2], -1) * s)
+    boxes[:, 0] = boxes[:, 0, [2, 1, 0, 3]]
+    boxes[:, r - n_zero:] = 0.0
+    return boxes
+
+
+def check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen, b, s, k, r,
+                       n_zero, check_grad):
+    """K3 bit-exact against its plain version, K1's pixel-box mode
+    bit-exact, and (``check_grad``) the training assembly's score-map
+    gradient against autograd through the plain gather.  Returns K3's
+    max |diff| and the gradient's error relative to max |ref|."""
+    boxes = random_px_boxes(torch, gen, b, r, s, n_zero).cuda()
+    g = torch.randn((b, r, s, s), generator=gen).cuda()
+    got = cuda_assembly.assemble_bwd_cuda(boxes, g, k)
+    want = mask_assembly.assemble_bwd_plain(boxes, g, k)
+    torch.cuda.synchronize()
+    need(torch.equal(got, want), f"K3 not bit-exact (S={s} k={k} R={r})")
+    need(torch.equal(want.cpu(), mask_assembly.assemble_bwd_plain(
+        boxes.cpu(), g.cpu(), k)), f"K3 plain differs card vs CPU (S={s} k={k})")
+    need(bool(got.any()), "K3 case has no pixel inside a ROI")
+    sm = torch.randn((b, s, s, k * k), generator=gen).cuda()
+    fwd = cuda_assembly.assemble_masks_batch_cuda(sm, boxes, k, apply_sigmoid=False,
+                                                  pixel_boxes=True)
+    need(torch.equal(fwd, cuda_assembly.assemble_masks_batch_plain(
+        sm, boxes, k, apply_sigmoid=False, pixel_boxes=True)),
+        f"K1 pixel-box logits not bit-exact (S={s} k={k})")
+    rel = 0.0
+    if check_grad:
+        sm_k = sm.clone().requires_grad_(True)
+        (cuda_assembly.assemble_masks_trainable(sm_k, boxes, k) * g).sum().backward()
+        sm_p = sm.clone().requires_grad_(True)
+        (mask_assembly._assemble_px(sm_p, boxes, k)[0] * g).sum().backward()
+        torch.cuda.synchronize()
+        rel = float((sm_k.grad - sm_p.grad).abs().max() / sm_p.grad.abs().max())
+        # the gather's backward scatters into an expanded [B,R,S,S,k^2]
+        # tensor and sums over R in its own order; K3 adds in ROI order
+        need(rel <= 1e-6, f"training assembly grad vs plain gather: rel err {rel}")
+    print(f"K3 S={s} B={b} R={r} k={k}: bit-exact; K1 pixel-box bit-exact"
+          + (f"; grad vs plain gather rel err {rel:.3g}" if check_grad else ""),
+          flush=True)
+    return float((got - want).abs().max()), rel
+
+
+def profile_window(torch, fn, calls, wall_ms):
+    """One torch.profiler window of ``calls`` calls of ``fn``: device busy
+    time per call, its idle share against ``wall_ms`` (the unprofiled
+    time per call) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / calls
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device) / calls
+    by_kind, top = {}, {}
+    for e in device:
+        kind_ = kernel_kind(e.key)
+        by_kind[kind_] = by_kind.get(kind_, 0.0) + e.self_device_time_total / calls
+        top[e.key[:100]] = top.get(e.key[:100], 0.0) + e.self_device_time_total / calls
+    return {"wall_us_per_call_profiled": wall_us,
+            "device_busy_us_per_call": busy_us if device else "not measured",
+            # the profiler slows the host, so the idle share is taken
+            # against the unprofiled time of phase 4
+            "device_idle_share": (1 - busy_us / (wall_ms * 1e3)
+                                  if device else "not measured"),
+            "kernel_launches_per_call": sum(e.count for e in device) / calls,
+            "device_us_by_kind": by_kind,
+            "top_kernels_us_per_call": dict(sorted(top.items(),
+                                                   key=lambda kv: -kv[1])[:10])}
+
+
+def state_moved(before, after, keys):
+    """Keys (params and BN statistics) whose tensors changed."""
+    return {k for k in keys if not before[k].equal(after[k])}
+
+
 def nms_case(torch, gen, b, k):
     """Score-sorted candidates: clustered overlapping boxes, 3 classes,
     scores rounded to 1/32 (forced ties)."""
@@ -236,7 +346,11 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dis_yolo_tpu_torch.config import DISYoloConfig
     from dis_yolo_tpu_torch.models import api
-    from dis_yolo_tpu_torch.ops import _build, cuda_assembly, cuda_nms, nms, paste
+    from dis_yolo_tpu_torch.ops import (_build, cuda_assembly, cuda_nms,
+                                        mask_assembly, nms, paste)
+    from dis_yolo_tpu_torch.train import train_step as ts
+    from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
+    from dis_yolo_tpu_torch.losses.mask_loss import draw_uniforms
     from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
 
     # ---- phase 1: device and build ------------------------------------
@@ -290,6 +404,14 @@ def main() -> None:
     print(f"K2 knife edge (IoU within 8 ulp of 0.3): index-exact, "
           f"{kept_second}/17 second boxes kept", flush=True)
 
+    k3_cases = [check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen,
+                                   b, s, k, r, n_zero, check_grad)
+                for b, s, k, r, n_zero, check_grad in (
+                    (2, 288, 3, 10, 2, True), (1, 576, 3, 4, 1, True),
+                    (1, 288, 5, 10, 2, False), (1, 288, 7, 10, 2, False))]
+    k3_err = max(e for e, _ in k3_cases)
+    grad_rel = max(r for _, r in k3_cases)
+
     # ---- phase 3: the slice -------------------------------------------
     cfg = DISYoloConfig()
     size = cfg.image_size
@@ -312,12 +434,14 @@ def main() -> None:
         return (dets, masks) + paste.paste_masks_batch(masks, dets, size, size, size)
 
     cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
     cuda_nms.nms_cuda.launches = 0
     outs = {(b, k2): serve(model_k2 if k2 else model, b)
             for b in (1, 2) for k2 in (False, True)}
     torch.cuda.synchronize()
     launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
-                "K2": cuda_nms.nms_cuda.launches}
+                "K2": cuda_nms.nms_cuda.launches,
+                "K3": cuda_assembly.assemble_bwd_cuda.launches}
     print(f"main path launches: {launches}", flush=True)
     need(launches["K1"] > 0 and launches["K2"] > 0,
          f"a kernel of the path never launched: {launches}")
@@ -365,6 +489,124 @@ def main() -> None:
           flush=True)
     del model32, model_cpu, raws_cpu
 
+    # the training slice: the threshold calibrated above lets NMS
+    # proposals reach the mask loss at random init, as a trained net's do
+    tcfg = cfg.replace(obj_threshold=thresh)
+    bsz, n_gt = tcfg.batch_size, tcfg.max_box_per_image
+    batch_np = synthetic_batch(tcfg, bsz, 3, seed=0)
+    wire = dict(batch_np, images=(batch_np["images"] * 255).astype(np.uint8))
+    wire["masks_packed"] = np.packbits(
+        wire.pop("true_masks").reshape(bsz, n_gt, -1), axis=-1)
+    tbatch = {k: torch.from_numpy(v).cuda() for k, v in wire.items()}
+    trainer1 = api.create_model(tcfg)
+    trainer1.load_state_dict(model.state_dict())
+    trainer2 = api.create_model(tcfg.replace(locked_layers=()))
+    keys = [k for k in trainer1.state_dict() if "num_batches_tracked" not in k]
+    sd0 = {k: v.clone() for k, v in trainer1.state_dict().items()}
+    state1, step1 = ts.init_train_state(trainer1), ts.make_train_step(trainer1)
+    gen_t = torch.Generator().manual_seed(1)
+
+    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
+    cuda_nms.nms_cuda.launches = 0
+    metrics = []
+    for _ in range(3):
+        state1, m = step1(state1, tbatch, gen_t)
+        metrics.append(m)
+    sd1 = {k: v.clone() for k, v in trainer1.state_dict().items()}
+    trainer2.load_state_dict(sd1)
+    state2, step2 = ts.init_train_state(trainer2), ts.make_train_step(trainer2)
+    for _ in range(2):
+        state2, m = step2(state2, tbatch, gen_t)
+        metrics.append(m)
+    sd2 = {k: v.clone() for k, v in trainer2.state_dict().items()}
+    # the same stage-2 step with and without K2 from the same state; the
+    # metrics come from the forward, run with deterministic cuDNN
+    same = []
+    for use_k2 in (False, True):
+        m_k2 = api.create_model(tcfg.replace(locked_layers=(), use_pallas_nms=use_k2))
+        m_k2.load_state_dict(sd1)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            same.append(ts.make_train_step(m_k2)(
+                ts.init_train_state(m_k2), tbatch,
+                torch.Generator().manual_seed(2))[1])
+        del m_k2
+    torch.cuda.synchronize()
+    train_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
+                      "K2": cuda_nms.nms_cuda.launches,
+                      "K3": cuda_assembly.assemble_bwd_cuda.launches}
+    print(f"training path launches: {train_launches}", flush=True)
+    need(train_launches["K1"] > 0 and train_launches["K3"] > 0
+         and train_launches["K2"] > 0,
+         f"a kernel of the training path never launched: {train_launches}")
+    for i, m in enumerate(metrics):
+        need(all(bool(torch.isfinite(v)) for v in m.values()),
+             f"train step {i}: non-finite metrics {m}")
+    need(state1.opt.total_notfinite == 0 and state2.opt.total_notfinite == 0,
+         "a training step was skipped as non-finite")
+    locked = {k for k in keys if ts.layer_id(k) in tcfg.locked_layers}
+    moved1 = state_moved(sd0, sd1, keys)
+    need(not (moved1 & locked), f"stage 1 moved locked entries: {sorted(moved1 & locked)[:5]}")
+    need(moved1 == set(keys) - locked,
+         f"stage 1 left unlocked entries unmoved: {sorted(set(keys) - locked - moved1)[:5]}")
+    moved2 = state_moved(sd1, sd2, keys)
+    need(moved2 == set(keys),
+         f"stage 2 left entries unmoved: {sorted(set(keys) - moved2)[:5]}")
+    for name in same[0]:
+        need(torch.equal(same[0][name], same[1][name]),
+             f"train step {name} differs with use_pallas_nms: "
+             f"{float(same[0][name])} vs {float(same[1][name])}")
+    print("train metrics per step: " + json.dumps(
+        [{k: float(v) for k, v in m.items()} for m in metrics]), flush=True)
+    print(f"training slice: 3 stage-1 + 2 stage-2 steps finite; {len(locked)} "
+          f"locked entries unchanged, {len(moved1)} moved in stage 1, "
+          f"{len(moved2)} in stage 2; metrics identical with K2", flush=True)
+
+    # one float32 step's loss and score-map gradient, card (K1/K3, TF32
+    # off) against the CPU (plain versions), with the same uniforms; the
+    # proposals are switched off so the ROIs are the exact GT boxes and no
+    # rounded proposal edge can flip between the two
+    cfg32t = tcfg.replace(compute_dtype="float32", locked_layers=(),
+                          obj_threshold=1.0)
+    u_prop, u_gt = draw_uniforms(torch.Generator().manual_seed(3), bsz,
+                                 cfg32t.max_detection, n_gt, "cpu")
+
+    def loss_and_sm_grad(dev):
+        m32 = api.create_model(cfg32t, device=dev)
+        m32.load_state_dict(sd1)
+        m32.requires_grad_(False)
+        held = {}
+
+        def hold(_mod, _inp, out):
+            held["sm"] = out[3].detach().requires_grad_(True)
+            return out[:3] + (held["sm"],)
+
+        m32.register_forward_hook(hold)
+        batch = ts.prepare_batch({k: torch.from_numpy(v).to(dev)
+                                  for k, v in wire.items()})
+        total, mets = ts.total_loss(m32, batch, u_prop.to(dev), u_gt.to(dev))
+        (grad,) = torch.autograd.grad(total, held["sm"])
+        return {k: float(v.detach()) for k, v in mets.items()}, grad.cpu()
+
+    mets_card, g_card = loss_and_sm_grad("cuda")
+    mets_cpu, g_cpu = loss_and_sm_grad("cpu")
+    loss_rel = abs(mets_card["total_loss"] - mets_cpu["total_loss"]) / abs(mets_cpu["total_loss"])
+    mask_rel = abs(mets_card["mask_loss"] - mets_cpu["mask_loss"]) / abs(mets_cpu["mask_loss"])
+    grad_err = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    # total: an anchor whose best IoU sits within rounding of ignore_thresh
+    # flips its no-object term (about 0.35 of a ~250 loss); the mask loss
+    # and its gradient are smooth in the score maps, which the two
+    # forwards give to ~1e-5 (f32, TF32 off, sums in other orders)
+    need(mets_cpu["mask_loss"] > 0, "f32 train check: no positive ROI")
+    need(loss_rel <= 1e-2 and mask_rel <= 1e-4,
+         f"f32 train loss card vs CPU: total rel {loss_rel}, mask rel {mask_rel}")
+    need(grad_err <= 1e-3, f"f32 score-map gradient card vs CPU: rel err {grad_err}")
+    print(f"f32 train step card vs CPU: total loss rel {loss_rel:.3g}, mask loss "
+          f"rel {mask_rel:.3g}, score-map grad max err / max|ref| {grad_err:.3g}",
+          flush=True)
+
     # ---- phase 4: timing ----------------------------------------------
     timings = {}
     for b in (1, 2):
@@ -376,35 +618,20 @@ def main() -> None:
             torch, lambda: serve(model, b), 20)
         timings[f"predict_k2_ms_b{b}"] = cuda_ms(
             torch, lambda: api.predict(model_k2, images[b], windows[b], thresh), 20)
+    # train steps go on from the slice's state (they train as they are timed)
+    timings["train_step_ms_stage1_b2"] = cuda_ms(
+        torch, lambda: step1(state1, tbatch, gen_t), 5, warmup=2, repeats=3)
+    timings["train_step_ms_stage2_b2"] = cuda_ms(
+        torch, lambda: step2(state2, tbatch, gen_t), 5, warmup=2, repeats=3)
     print("timings " + json.dumps(timings), flush=True)
 
     # where the time goes: one traced window of predict + paste at B=1
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            serve(model, 1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / 3
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in device) / 3
-    by_kind, top = {}, {}
-    for e in device:
-        kind_ = kernel_kind(e.key)
-        by_kind[kind_] = by_kind.get(kind_, 0.0) + e.self_device_time_total / 3
-        top[e.key[:100]] = top.get(e.key[:100], 0.0) + e.self_device_time_total / 3
-    trace = {"wall_us_per_call_profiled": wall_us,
-             "device_busy_us_per_call": busy_us if device else "not measured",
-             # the profiler slows the host, so the idle share is taken
-             # against the unprofiled predict+paste time of phase 4
-             "device_idle_share": (1 - busy_us / (timings["predict_paste_ms_b1"] * 1e3)
-                                   if device else "not measured"),
-             "kernel_launches_per_call": sum(e.count for e in device) / 3,
-             "device_us_by_kind": by_kind,
-             "top_kernels_us_per_call": dict(sorted(top.items(),
-                                                    key=lambda kv: -kv[1])[:10])}
+    trace = profile_window(torch, lambda: serve(model, 1), 3,
+                           timings["predict_paste_ms_b1"])
     print("trace predict+paste B=1: " + json.dumps(trace), flush=True)
+    train_trace = profile_window(torch, lambda: step2(state2, tbatch, gen_t), 2,
+                                 timings["train_step_ms_stage2_b2"])
+    print("trace train step stage 2 B=2: " + json.dumps(train_trace), flush=True)
 
     # kernels at the main path's shapes and data: the arguments of one
     # B=1 predict with K2, recorded after the timed runs
@@ -446,28 +673,83 @@ def main() -> None:
           f"{k2_plain * 1e3:.1f} us, bound {k2_bound[0] * 1e3:.3f} us by "
           f"{k2_bound[1]})", flush=True)
 
+    # K3 (and K1 in pixel-box mode) at the training path's shapes: the
+    # arguments of one stage-2 step, recorded after the timed runs
+    with capturing(captured, (cuda_assembly, "assemble_bwd_cuda"),
+                   (cuda_assembly, "assemble_masks_batch_cuda")):
+        step2(state2, tbatch, gen_t)
+    (k3_args, _), (k1t_args, k1t_kw) = (captured["assemble_bwd_cuda"],
+                                        captured["assemble_masks_batch_cuda"])
+    roi_px, g_rois, k3_k = k3_args
+    k3 = lambda: cuda_assembly.assemble_bwd_cuda(*k3_args)
+    k3_plain_fn = lambda: mask_assembly.assemble_bwd_plain(*k3_args)
+    k3_ms, k3_plain = graph_ms(torch, k3), graph_ms(torch, k3_plain_fn)
+    per_call["K1_train_pixel_boxes_device"] = graph_ms(
+        torch, lambda: cuda_assembly.assemble_masks_batch_cuda(*k1t_args, **k1t_kw))
+    per_call["K3"] = cuda_ms(torch, k3, 100)
+    s3 = g_rois.shape[-1]
+    # what this run's ROIs need: g read only at the (ROI, pixel inside
+    # it) pairs (g outside every ROI does not change the output), the
+    # boxes read once, the dense gradient written once; one addition per
+    # (ROI, pixel inside it)
+    k3_inside = float(mask_assembly.box_inside_mask(roi_px, s3).sum())
+    k3_bound = bound(k3_inside * 4 + roi_px.numel() * 4
+                     + g_rois.shape[0] * s3 * s3 * k3_k * k3_k * 4, k3_inside)
+    print(f"K3 B={g_rois.shape[0]} R={g_rois.shape[1]} S={s3}: {k3_ms * 1e3:.1f} us "
+          f"(plain {k3_plain * 1e3:.1f} us, bound {k3_bound[0] * 1e3:.2f} us by "
+          f"{k3_bound[1]}); K1 pixel-box R={k1t_args[1].shape[1]}: "
+          f"{per_call['K1_train_pixel_boxes_device'] * 1e3:.1f} us", flush=True)
+
+    def path_launches(name):
+        return {"launches": launches[name] + train_launches[name],
+                "launches_by_path": {"serving": launches[name],
+                                     "training": train_launches[name]}}
+
     kernels = [
         {"name": "K1 mask assembly + sigmoid", "route": "cuda",
          "source": "dis_yolo_tpu_torch/csrc/assembly.cu",
          "replaces": "dis_yolo_tpu/ops/pallas_assembly.py:276",
-         "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
+         **path_launches("K1"),
+         "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 class-aware greedy NMS", "route": "cuda",
          "source": "dis_yolo_tpu_torch/csrc/nms.cu",
          "replaces": "dis_yolo_tpu/ops/pallas_nms.py:73",
-         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
+         **path_launches("K2"),
+         "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "K3 mask assembly backward", "route": "cuda",
+         "source": "dis_yolo_tpu_torch/csrc/assembly_bwd.cu",
+         "replaces": "dis_yolo_tpu/ops/pallas_assembly.py:444",
+         **path_launches("K3"), "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi_line,
                        "torch": torch.__version__, "threshold": thresh,
-                       "launches_main_path": launches, "timings_ms": timings,
+                       "launches_main_path": launches,
+                       "launches_training_path": train_launches,
+                       "timings_ms": timings,
                        "kernel_call_ms": per_call, "trace": trace,
-                       "f32_forward_rel_err": fwd_err, "kernels": kernels},
+                       "trace_train_step": train_trace,
+                       "train_metrics": [{k: float(v) for k, v in m.items()}
+                                         for m in metrics],
+                       "f32_forward_rel_err": fwd_err,
+                       "f32_train_card_vs_cpu": {
+                           "total_loss_rel": loss_rel, "mask_loss_rel": mask_rel,
+                           "scoremap_grad_rel": grad_err},
+                       "train_assembly_grad_vs_gather_rel": grad_rel,
+                       "k3_shapes": {"B": g_rois.shape[0], "R": g_rois.shape[1],
+                                     "S": s3, "k": k3_k,
+                                     "roi_pixels_inside": k3_inside},
+                       "max_memory_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9,
+                       "kernels": kernels},
                       f, indent=1)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,8 @@ A copy of ``dis_yolo_tpu/config.py`` (the port imports nothing of the JAX
 package): the same frozen dataclass with the same field names, defaults
 and properties, so the JAX reference and the port are built from the same
 keyword arguments.  The comments describe what each knob means in the
-port; knobs the port does not read yet (training, deploy, quant, mesh)
-are kept for that parity and documented in the JAX package's copy.
+port; knobs the port does not read yet (deploy, quant, mesh, data
+pipeline) are kept for that parity and documented in the JAX package's copy.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ class DISYoloConfig:
     flipped: bool = True
     blur_noise_light: bool = True
 
-    # ---- training schedule (not read by the port yet) -----------------------
+    # ---- training schedule (train/train_step.py) -----------------------------
     max_iter: int = 10000
     summary_iter: int = 50
     save_iter: int = 500
@@ -59,7 +59,7 @@ class DISYoloConfig:
     k_map: int = 3                  # k x k position-sensitive score maps
     mask_stride: int = 2            # score maps at input / mask_stride (1, 2, 4)
 
-    # ---- loss scales (not read by the port yet) ------------------------------
+    # ---- loss scales (losses/) ----------------------------------------------
     object_scale: float = 2.0
     noobject_scale: float = 1.0
     class_scale: float = 1.0
@@ -88,7 +88,9 @@ class DISYoloConfig:
     # (the JAX package's gather path) is not ported
     use_pallas_assembly: bool = True
     # ---- not ported yet: serving-graph variants and training knobs ---------
-    # (`check_ported` refuses the graph variants among them)
+    # (`check_ported` refuses the graph variants among them,
+    # `check_trainable` the training knobs; `grad_clip_norm` and
+    # `skip_nonfinite_updates` are read by the train step)
     deploy: bool = False
     quant: bool = False
     quant_calibrate: bool = False
@@ -165,6 +167,19 @@ class DISYoloConfig:
                     f"{name}={value!r} is not ported to dis_yolo_tpu_torch "
                     f"yet (only the default {defaults[name]!r} is)")
 
+    def check_trainable(self) -> None:
+        """Raise if a training knob asks for what the port's train step
+        does not have yet (gradient accumulation, on-device augmentation
+        or corpus, multi-step dispatch, sync-BN), or ``check_ported``
+        refuses the graph (``remat`` among others)."""
+        self.check_ported()
+        for name, ported in UNPORTED_TRAIN_FIELDS.items():
+            value = getattr(self, name)
+            if value != ported:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported to dis_yolo_tpu_torch's "
+                    f"train step yet (only {ported!r} is)")
+
     def replace(self, **kw) -> "DISYoloConfig":
         return dataclasses.replace(self, **kw)
 
@@ -180,5 +195,11 @@ class DISYoloConfig:
 UNPORTED_GRAPH_FIELDS = ("use_pallas_assembly", "deploy", "quant",
                          "quant_calibrate", "s2d_stem", "remat",
                          "decoder_commute")
+
+# training knobs and the one value of each that the train step supports
+# (`remat` is refused with the graph variants)
+UNPORTED_TRAIN_FIELDS = {"grad_accum": 1, "device_side_augs": False,
+                         "device_corpus": False, "steps_per_dispatch": 1,
+                         "bn_axis": None}
 
 DEFAULT_CONFIG = DISYoloConfig()

@@ -8,8 +8,10 @@
 //
 // Per (image b, box d, row tile t) block:
 //   * thread 0 rounds the normalized box to score-map pixels
-//     (round(norm * S), half to even) and computes the k+1 grid lines per
-//     axis, g_i = round(y1 + i * (y2 - y1) / k), into shared memory;
+//     (round(norm * S), half to even) -- or, in pixel-box mode (the
+//     training forward, _assembly_px), takes the already-rounded pixel box
+//     as it is -- and computes the k+1 grid lines per axis,
+//     g_i = round(y1 + i * (y2 - y1) / k), into shared memory;
 //   * a tile that the box's row span misses, and every padding row (a zero
 //     box), writes zeros with no bin math (the TPU kernel's `intersects`);
 //   * otherwise each thread takes pixels of the tile, finds the half-open
@@ -46,7 +48,7 @@ __device__ __forceinline__ int bin_of(const float* lines, int k, float pos) {
 __global__ void __launch_bounds__(kThreads)
 assembly_kernel(const float* __restrict__ sm, const float* __restrict__ boxes,
                 float* __restrict__ out, int n_box, int size, int k,
-                int apply_sigmoid) {
+                int apply_sigmoid, int pixel_boxes) {
   __shared__ float gy[kMaxK + 1];
   __shared__ float gx[kMaxK + 1];
   const int tile = blockIdx.x;
@@ -57,10 +59,10 @@ assembly_kernel(const float* __restrict__ sm, const float* __restrict__ boxes,
 
   if (threadIdx.x == 0) {
     const float* box = boxes + ((size_t)b * n_box + d) * 4;
-    const float y1 = rintf(__fmul_rn(box[0], fs));
-    const float x1 = rintf(__fmul_rn(box[1], fs));
-    const float y2 = rintf(__fmul_rn(box[2], fs));
-    const float x2 = rintf(__fmul_rn(box[3], fs));
+    const float y1 = pixel_boxes ? box[0] : rintf(__fmul_rn(box[0], fs));
+    const float x1 = pixel_boxes ? box[1] : rintf(__fmul_rn(box[1], fs));
+    const float y2 = pixel_boxes ? box[2] : rintf(__fmul_rn(box[2], fs));
+    const float x2 = pixel_boxes ? box[3] : rintf(__fmul_rn(box[3], fs));
     const float sub_h = __fdiv_rn(__fsub_rn(y2, y1), (float)k);
     const float sub_w = __fdiv_rn(__fsub_rn(x2, x1), (float)k);
     gy[0] = y1;
@@ -103,16 +105,18 @@ assembly_kernel(const float* __restrict__ sm, const float* __restrict__ boxes,
 
 }  // namespace
 
-// scoremaps [B,S,S,k*k] f32, boxes_norm [B,D,4] f32 yxyx, out [B,D,S,S] f32.
+// scoremaps [B,S,S,k*k] f32, boxes [B,D,4] f32 yxyx (normalized, or
+// rounded score-map pixels when pixel_boxes != 0), out [B,D,S,S] f32.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int dis_assemble_masks(const float* scoremaps,
-                                  const float* boxes_norm, float* out,
+                                  const float* boxes, float* out,
                                   int batch, int n_box, int size, int k,
-                                  int apply_sigmoid, void* stream) {
+                                  int apply_sigmoid, int pixel_boxes,
+                                  void* stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   if (batch == 0 || n_box == 0 || size == 0) return 0;
   const dim3 grid((size + kTileRows - 1) / kTileRows, n_box, batch);
   assembly_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      scoremaps, boxes_norm, out, n_box, size, k, apply_sigmoid);
+      scoremaps, boxes, out, n_box, size, k, apply_sigmoid, pixel_boxes);
   return (int)cudaGetLastError();
 }

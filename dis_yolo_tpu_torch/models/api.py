@@ -78,10 +78,12 @@ def init_model(cfg: DISYoloConfig, seed: int = 0, device=None) -> DISYolo:
 
 
 def forward(model: DISYolo, images, device=None):
-    """Raw network outputs (raw_s8, raw_s16, raw_s32, scoremaps)."""
+    """Raw network outputs (raw_s8, raw_s16, raw_s32, scoremaps), in eval
+    mode (running BN statistics) even for a model that was training."""
     dev = resolve_device(device)
     if _model_device(model).type != dev.type:
         raise ValueError(f"model on {_model_device(model)}, expected {dev}")
+    model.eval()
     with torch.no_grad():
         return model(_to_device(images, dev))
 

@@ -10,9 +10,11 @@ Flax modules, so the weight bridge (``models/weights.py``) maps names 1:1.
 The public outputs keep the JAX layouts and dtype: raw heads
 ``[B, H/s, W/s, 3, 5+C]`` and score maps ``[B, S, S, k^2]``, NHWC, all
 float32.  Inside, the convs run NCHW on a channels-last view of the NHWC
-input.  Not ported yet, and refused by ``cfg.check_ported()``:
-``decoder_commute``, ``deploy``, ``quant``, ``s2d_stem`` and ``remat``;
-``stop_stage`` is not an argument here.
+input.  ``model.train()`` is Flax's ``train=True``: BatchNorm uses batch
+statistics, except in the layers of ``cfg.locked_layers``.  Not ported
+yet, and refused by ``cfg.check_ported()``: ``decoder_commute``,
+``deploy``, ``quant``, ``s2d_stem`` and ``remat``; ``stop_stage`` is not
+an argument here.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ class DISYolo(nn.Module):
         dtype = getattr(torch, cfg.compute_dtype)
         for idx, kind, cin, feat, kernel, stride in _layer_specs(cfg):
             if kind == "cbn":
-                layer = ConvBN(cin, feat, kernel, stride, cfg.alpha, dtype)
+                layer = ConvBN(cin, feat, kernel, stride, cfg.alpha, dtype,
+                               lock=idx in cfg.locked_layers)
             else:
                 layer = ConvBias(cin, feat, dtype)
             self.add_module(f"convolutional{idx}", layer)

@@ -9,8 +9,14 @@ JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
     not PyTorch's symmetric (1, 1);
   * BatchNorm runs in float32 on the conv output cast up, eps 1e-5, and
     the result is cast back to the compute dtype before the leaky ReLU;
-  * momentum maps exactly: Flax keeps ``0.997 * old``, PyTorch keeps
-    ``(1 - momentum) * old``, so momentum 0.003.
+  * BatchNorm follows Flax, not ``nn.BatchNorm2d``, in training: the
+    batch variance is the biased ``max(E[x^2] - E[x]^2, 0)`` over
+    (N, H, W) in float32, and the running statistics move as
+    ``0.997 * old + 0.003 * batch`` with that biased variance (PyTorch's
+    own train mode would store the unbiased one);
+  * a locked layer (``lock=True``, the reference's transfer-learning
+    freeze) normalizes with its running statistics and leaves them
+    untouched even in train mode.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-BN_MOMENTUM = 1.0 - 0.997
+BN_DECAY = 0.997                 # Flax's momentum: new = decay*old + ...
+BN_MOMENTUM = 1.0 - BN_DECAY     # nn.BatchNorm2d's convention
 BN_EPS = 1e-5
 
 
@@ -52,24 +59,50 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int):
     return F.conv2d(x, weight, bias, stride, 0)
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Flax ``BatchNorm(use_running_average=False)`` on an NCHW float32
+    tensor: normalize with the biased batch statistics and move ``bn``'s
+    running statistics towards them (in place, outside autograd)."""
+    mean = x.mean((0, 2, 3))
+    var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_DECAY).add_((1.0 - BN_DECAY) * mean)
+        bn.running_var.mul_(BN_DECAY).add_((1.0 - BN_DECAY) * var)
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias[:, None, None]
+
+
 class ConvBN(nn.Module):
-    """3x3/1x1 conv (no bias) + BatchNorm + leaky-ReLU."""
+    """3x3/1x1 conv (no bias) + BatchNorm + leaky-ReLU.
+
+    ``bn`` is an ``nn.BatchNorm2d`` for its parameter and buffer names
+    (the weight bridge maps them); in train mode its statistics follow
+    Flax (``batch_norm_train``), and a locked layer always normalizes
+    with the running statistics.
+    """
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, alpha: float = 0.1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, lock: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, stride, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.stride = stride
         self.alpha = alpha
         self.dtype = dtype
+        self.lock = lock
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
                       self.stride)
-        x = self.bn(x.float()).to(self.dtype)
-        return leaky_relu(x, self.alpha)
+        bn = self.bn
+        if self.training and not self.lock:
+            x = batch_norm_train(x.float(), bn)
+        else:
+            x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                             bn.weight, bn.bias, False, 0.0, BN_EPS)
+        return leaky_relu(x.to(self.dtype), self.alpha)
 
 
 class ConvBias(nn.Module):

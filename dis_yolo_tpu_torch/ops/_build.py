@@ -31,8 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel library: (C entry point, its argtypes); every one returns int
 SIGNATURES: Dict[str, Tuple[str, tuple]] = {
-    # scoremaps, boxes, out, batch, n_box, size, k, apply_sigmoid, stream
-    "assembly": ("dis_assemble_masks", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # scoremaps, boxes, out, batch, n_box, size, k, apply_sigmoid,
+    # pixel_boxes, stream
+    "assembly": ("dis_assemble_masks",
+                 (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    # boxes_px, g, out, batch, n_roi, size, k, stream
+    "assembly_bwd": ("dis_assemble_bwd", (_P, _P, _P, _I, _I, _I, _I, _P)),
     # boxes, scores, classes, valid, out, batch, k, max_det, thr, stream
     "nms": ("dis_nms", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
 }

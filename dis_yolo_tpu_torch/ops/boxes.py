@@ -42,3 +42,20 @@ def iou_matrix_yxyx(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     union = a1 + a2 - inter
     pos = union > 0
     return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
+
+
+def iou_cxcywh_pairwise(pred_xywh: torch.Tensor,
+                        true_xywh: torch.Tensor) -> torch.Tensor:
+    """IoU of the YOLO loss's ignore mask: pred [..., 1, 4] broadcast
+    against true [..., T, 4], both (xc, yc, w, h); the union is floored at
+    1e-10 and the result clipped to [0, 1], like the reference."""
+    pred_xy, pred_wh = pred_xywh[..., 0:2], pred_xywh[..., 2:4]
+    true_xy, true_wh = true_xywh[..., 0:2], true_xywh[..., 2:4]
+    pred_min, pred_max = pred_xy - pred_wh / 2.0, pred_xy + pred_wh / 2.0
+    true_min, true_max = true_xy - true_wh / 2.0, true_xy + true_wh / 2.0
+    inter_wh = (torch.minimum(pred_max, true_max)
+                - torch.maximum(pred_min, true_min)).clamp_min(0.0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = (pred_wh[..., 0] * pred_wh[..., 1]
+             + true_wh[..., 0] * true_wh[..., 1] - inter).clamp_min(1e-10)
+    return torch.clamp(inter / union, 0.0, 1.0)

@@ -1,18 +1,23 @@
-"""Fused position-sensitive mask assembly + sigmoid: CUDA kernel K1.
+"""Position-sensitive mask assembly on CUDA: kernels K1 (forward, with
+sigmoid) and K3 (backward), and the differentiable assembly of training.
 
-Counterpart of ``dis_yolo_tpu/ops/pallas_assembly.py``'s forward
-(``assemble_masks_batch_pallas``); the kernel is ``csrc/assembly.cu``,
-whose header says what it replaces and what bounds it.
+Counterparts of ``dis_yolo_tpu/ops/pallas_assembly.py``: K1
+(``csrc/assembly.cu``) of ``assemble_masks_batch_pallas`` and of the
+training forward ``_assembly_px``, K3 (``csrc/assembly_bwd.cu``) of the
+custom-VJP backward ``_assembly_bwd``; each source's header says what it
+replaces and what bounds it.
 
 Semantics are the Pallas kernel's, not the JAX gather path's: inside the
 box each pixel is sigmoid(score map channel of its k x k bin); outside it
 is an exact 0 (the gather path's sigmoid maps it to 0.5).  With
 ``apply_sigmoid=False`` the output is the raw logits, 0 outside.
 
-``assemble_masks_batch_cuda`` launches the kernel for CUDA tensors and
-runs the plain PyTorch version, ``assemble_masks_batch_plain``, only for
-CPU tensors; anything else raises.  ``assemble_masks_batch_cuda.launches``
-counts kernel launches.
+Each wrapper (``assemble_masks_batch_cuda``, ``assemble_bwd_cuda``)
+launches its kernel for CUDA tensors and runs its plain PyTorch version
+only for CPU tensors; anything else raises.  Its ``launches`` attribute
+counts kernel launches.  ``assemble_masks_trainable`` is the
+``torch.autograd.Function`` of the training path: K1 forward in
+pixel-box mode, K3 backward.
 """
 
 from __future__ import annotations
@@ -20,21 +25,45 @@ from __future__ import annotations
 import torch
 
 from dis_yolo_tpu_torch.ops import _build
-from dis_yolo_tpu_torch.ops.mask_assembly import _assemble_px
+from dis_yolo_tpu_torch.ops.mask_assembly import (_assemble_px,
+                                                  assemble_bwd_plain)
 
 MAX_K = 16
+MAX_ROIS = 256          # K3 keeps every ROI's grid lines in shared memory
 
 
 def assemble_masks_batch_plain(scoremaps: torch.Tensor,
                                boxes_norm: torch.Tensor, k: int,
-                               apply_sigmoid: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of K1: [B,S,S,k*k] + [B,D,4] -> [B,D,S,S]."""
+                               apply_sigmoid: bool = True,
+                               pixel_boxes: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K1: [B,S,S,k*k] + [B,D,4] -> [B,D,S,S].
+    ``pixel_boxes``: the boxes are already rounded score-map pixels."""
     s = scoremaps.shape[1]
-    boxes_px = torch.round(boxes_norm.float() * s)
+    boxes_px = (boxes_norm.float() if pixel_boxes
+                else torch.round(boxes_norm.float() * s))
     logits, inside = _assemble_px(scoremaps.float(), boxes_px, k)
     if not apply_sigmoid:
         return logits
     return torch.where(inside, 1.0 / (1.0 + torch.exp(-logits)), 0.0)
+
+
+def _on_cpu(name: str, tensors) -> bool:
+    """True for CPU tensors (the plain version runs); raises unless all
+    lie on one CUDA device."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs its tensors on one CUDA device "
+                         f"(or all on the CPU), got {devices}")
+    return False
+
+
+def _check_f32(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got "
+                             f"{t.dtype} contiguous={t.is_contiguous()}")
 
 
 def _check(scoremaps: torch.Tensor, boxes_norm: torch.Tensor, k: int) -> None:
@@ -52,21 +81,17 @@ def _check(scoremaps: torch.Tensor, boxes_norm: torch.Tensor, k: int) -> None:
 
 def assemble_masks_batch_cuda(scoremaps: torch.Tensor,
                               boxes_norm: torch.Tensor, k: int,
-                              apply_sigmoid: bool = True) -> torch.Tensor:
+                              apply_sigmoid: bool = True,
+                              pixel_boxes: bool = False) -> torch.Tensor:
     """[B,S,S,k*k] f32 score maps + [B,D,4] normalized yxyx boxes ->
-    [B,D,S,S] f32 masks (sigmoid inside the box, 0 outside)."""
+    [B,D,S,S] f32 masks (sigmoid inside the box, 0 outside).  With
+    ``pixel_boxes`` the boxes are already rounded score-map pixels (the
+    training forward) and are not rounded again."""
     _check(scoremaps, boxes_norm, k)
-    devices = {scoremaps.device, boxes_norm.device}
-    if devices == {torch.device("cpu")}:
+    if _on_cpu("assemble_masks_batch_cuda", (scoremaps, boxes_norm)):
         return assemble_masks_batch_plain(scoremaps, boxes_norm, k,
-                                          apply_sigmoid)
-    if len(devices) != 1 or scoremaps.device.type != "cuda":
-        raise ValueError("assemble_masks_batch_cuda needs both tensors on "
-                         f"one CUDA device (or both on the CPU), got {devices}")
-    for name, t in (("scoremaps", scoremaps), ("boxes_norm", boxes_norm)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got "
-                             f"{t.dtype} contiguous={t.is_contiguous()}")
+                                          apply_sigmoid, pixel_boxes)
+    _check_f32(scoremaps=scoremaps, boxes_norm=boxes_norm)
     bsz, s = scoremaps.shape[0], scoremaps.shape[1]
     d = boxes_norm.shape[1]
     out = torch.empty((bsz, d, s, s), dtype=torch.float32,
@@ -75,10 +100,70 @@ def assemble_masks_batch_cuda(scoremaps: torch.Tensor,
     with torch.cuda.device(scoremaps.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(scoremaps.data_ptr(), boxes_norm.data_ptr(), out.data_ptr(),
-                 bsz, d, s, k, int(apply_sigmoid), stream)
+                 bsz, d, s, k, int(apply_sigmoid), int(pixel_boxes), stream)
     _build.check(err, "assembly kernel launch")
     assemble_masks_batch_cuda.launches += 1
     return out
 
 
 assemble_masks_batch_cuda.launches = 0
+
+
+def assemble_bwd_cuda(boxes_px: torch.Tensor, g: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """K3: rounded px boxes [B,R,4] + upstream gradient [B,R,S,S] f32 ->
+    score-map gradient [B,S,S,k*k] f32 (``assemble_bwd_plain`` on the
+    CPU)."""
+    if g.dim() != 4 or g.shape[2] != g.shape[3] \
+            or boxes_px.shape != (g.shape[0], g.shape[1], 4):
+        raise ValueError("assemble_bwd_cuda expects boxes_px [B,R,4] and g "
+                         f"[B,R,S,S], got {tuple(boxes_px.shape)}, "
+                         f"{tuple(g.shape)}")
+    if not 1 <= k <= MAX_K or g.shape[1] > MAX_ROIS:
+        raise ValueError(f"assemble_bwd_cuda supports 1 <= k <= {MAX_K} and "
+                         f"R <= {MAX_ROIS}, got k={k}, R={g.shape[1]}")
+    if _on_cpu("assemble_bwd_cuda", (boxes_px, g)):
+        return assemble_bwd_plain(boxes_px.float(), g, k)
+    _check_f32(boxes_px=boxes_px, g=g)
+    bsz, r, s = g.shape[0], g.shape[1], g.shape[2]
+    out = torch.empty((bsz, s, s, k * k), dtype=torch.float32, device=g.device)
+    fn = _build.load("assembly_bwd")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(boxes_px.data_ptr(), g.data_ptr(), out.data_ptr(), bsz, r, s,
+                 k, stream)
+    _build.check(err, "assembly backward kernel launch")
+    assemble_bwd_cuda.launches += 1
+    return out
+
+
+assemble_bwd_cuda.launches = 0
+
+
+class _AssembleTrainable(torch.autograd.Function):
+    """Logits of the ROIs' assembled masks, differentiable in the score
+    maps: K1 forward on pixel boxes, K3 backward (the custom VJP of
+    ``assemble_masks_trainable`` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, scoremaps, boxes_px, k):
+        boxes_px = boxes_px.float().contiguous()
+        ctx.save_for_backward(boxes_px)
+        ctx.k = k
+        return assemble_masks_batch_cuda(scoremaps.float().contiguous(),
+                                         boxes_px, k, apply_sigmoid=False,
+                                         pixel_boxes=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        (boxes_px,) = ctx.saved_tensors
+        g_sm = assemble_bwd_cuda(boxes_px, g.float().contiguous(), ctx.k)
+        # rounding killed the boxes' gradient in the gather formulation
+        return g_sm, torch.zeros_like(boxes_px), None
+
+
+def assemble_masks_trainable(scoremaps: torch.Tensor, boxes_px: torch.Tensor,
+                             k: int) -> torch.Tensor:
+    """[B,S,S,k*k] score maps (+grad) + [B,R,4] rounded yxyx px boxes
+    (zero gradient) -> [B,R,S,S] logits, 0 outside each box."""
+    return _AssembleTrainable.apply(scoremaps, boxes_px, k)

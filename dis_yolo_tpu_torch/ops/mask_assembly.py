@@ -48,6 +48,33 @@ def _assemble_px(scoremaps: torch.Tensor, boxes_px: torch.Tensor, k: int):
     return torch.where(inside, picked, 0.0), inside
 
 
+def assemble_bwd_plain(boxes_px: torch.Tensor, g: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """Gradient of ``_assemble_px``'s logits w.r.t. the score maps:
+    rounded px boxes [B,R,4] + upstream gradient [B,R,S,S] ->
+    [B,S,S,k*k], ``out[..., ky*k+kx] = sum_d g[d] * row_d[ky] x col_d[kx]``.
+
+    ROI by ROI in ascending ``d``, starting from zeros, as the TPU
+    backward kernel accumulates (``_assembly_bwd_kernel``), so the sums
+    round in the same order.  The plain version of kernel K3 and its CPU
+    path.
+    """
+    bsz, r, s = g.shape[0], g.shape[1], g.shape[2]
+    kk = k * k
+    gy = _grid_lines(boxes_px[..., 0], boxes_px[..., 2], k)      # [B,R,k+1]
+    gx = _grid_lines(boxes_px[..., 1], boxes_px[..., 3], k)
+    row_bin, row_in = bin_index_1d(s, gy, k)                     # [B,R,S]
+    col_bin, col_in = bin_index_1d(s, gx, k)
+    channels = torch.arange(kk, dtype=torch.int32, device=g.device)
+    out = torch.zeros((bsz, s, s, kk), dtype=torch.float32, device=g.device)
+    for d in range(r):
+        kidx = row_bin[:, d, :, None] * k + col_bin[:, d, None, :]  # [B,S,S]
+        inside = row_in[:, d, :, None] & col_in[:, d, None, :]
+        hit = (kidx[..., None] == channels) & inside[..., None]
+        out = out + torch.where(hit, g[:, d, :, :, None].float(), 0.0)
+    return out
+
+
 def assemble_mask_single(scoremap: torch.Tensor, box_yxyx_px: torch.Tensor,
                          k: int) -> torch.Tensor:
     """One instance-mask logit map: scoremap [S,S,k*k], box [4] rounded
@@ -56,11 +83,12 @@ def assemble_mask_single(scoremap: torch.Tensor, box_yxyx_px: torch.Tensor,
 
 
 def box_inside_mask(box_yxyx_px: torch.Tensor, size: int) -> torch.Tensor:
-    """Inside-box indicator [S, S] (float32) = sum of all k^2 cell masks."""
+    """Inside-box indicator [..., S, S] (float32) = sum of all k^2 cell
+    masks, for rounded px boxes [..., 4]."""
     pos = torch.arange(size, dtype=torch.float32, device=box_yxyx_px.device)
-    rows = (pos >= box_yxyx_px[0]) & (pos < box_yxyx_px[2])
-    cols = (pos >= box_yxyx_px[1]) & (pos < box_yxyx_px[3])
-    return (rows[:, None] & cols[None, :]).float()
+    rows = (pos >= box_yxyx_px[..., 0, None]) & (pos < box_yxyx_px[..., 2, None])
+    cols = (pos >= box_yxyx_px[..., 1, None]) & (pos < box_yxyx_px[..., 3, None])
+    return (rows[..., :, None] & cols[..., None, :]).float()
 
 
 def assemble_masks(scoremap: torch.Tensor, boxes_norm: torch.Tensor,

@@ -1,5 +1,6 @@
 """The port's boundaries: it imports nothing of JAX or the JAX package,
-never drifts to the CPU, and its CUDA wrappers never fall back."""
+never drifts to the CPU, refuses what it has not ported, and its CUDA
+wrappers never fall back."""
 
 import ast
 from pathlib import Path
@@ -11,8 +12,10 @@ import torch
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.models import api
 from dis_yolo_tpu_torch.ops import _build
-from dis_yolo_tpu_torch.ops.cuda_assembly import assemble_masks_batch_cuda
+from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_bwd_cuda,
+                                                  assemble_masks_batch_cuda)
 from dis_yolo_tpu_torch.ops.cuda_nms import nms_cuda
+from dis_yolo_tpu_torch.train import train_step
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,6 +73,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         api.predict_from_outputs(cfg, raws, windows)
     dets, masks = api.predict(model, images, windows, device="cpu")
     assert dets.device.type == masks.device.type == "cpu"
+    for call in (lambda: train_step.init_train_state(model),
+                 lambda: train_step.make_train_step(model)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state = train_step.init_train_state(model, device="cpu")
+    assert callable(train_step.make_train_step(model, device="cpu"))
+    assert state.step == 0 and state.opt.count == 0
 
 
 def test_entry_points_reject_tensors_on_another_device():
@@ -100,6 +110,25 @@ def test_unported_config_raises(field, value):
     assert dets.shape == (1, 30, 6) and masks.shape == (1, 30, 32, 32)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("grad_accum", 2), ("remat", True), ("device_side_augs", True),
+    ("device_corpus", True), ("steps_per_dispatch", 4), ("bn_axis", "dp")])
+def test_unported_training_knob_raises(field, value):
+    """A training knob the port's train step lacks raises in
+    check_trainable and at the train entry points."""
+    cfg = DISYoloConfig(image_size=64)
+    cfg.check_trainable()
+    bad = cfg.replace(**{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        bad.check_trainable()
+    model = api.create_model(cfg, device="cpu")
+    model.cfg = bad
+    for call in (lambda: train_step.init_train_state(model, device="cpu"),
+                 lambda: train_step.make_train_step(model, device="cpu")):
+        with pytest.raises(NotImplementedError, match=field):
+            call()
+
+
 def test_cuda_wrappers_never_fall_back(monkeypatch):
     """CPU tensors take the plain version without building anything; any
     other placement raises before a kernel is built, never falls back."""
@@ -118,6 +147,20 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
             assemble_masks_batch_cuda(*args, 3)
     with pytest.raises(ValueError, match=r"\[B,S,S,9\]"):
         assemble_masks_batch_cuda(torch.zeros((1, 8, 8, 4)), bx, 3)
+
+    g = torch.zeros((1, 3, 8, 8))
+    before = assemble_bwd_cuda.launches
+    assert assemble_bwd_cuda(bx, g, 3).shape == (1, 8, 8, 9)
+    assert assemble_bwd_cuda.launches == before
+    for args in ((bx.to("meta"), g), (bx, g.to("meta")),
+                 (bx.to("meta"), g.to("meta"))):
+        with pytest.raises(ValueError, match="CUDA device"):
+            assemble_bwd_cuda(*args, 3)
+    with pytest.raises(ValueError, match=r"boxes_px \[B,R,4\]"):
+        assemble_bwd_cuda(torch.zeros((1, 2, 4)), g, 3)
+    with pytest.raises(ValueError, match="R <= 256"):
+        assemble_bwd_cuda(torch.zeros((1, 300, 4)),
+                          torch.zeros((1, 300, 8, 8)), 3)
 
     boxes = torch.zeros((1, 16, 4))
     scores = torch.zeros((1, 16))
