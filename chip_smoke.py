@@ -19,7 +19,11 @@ Phases (any failure exits non-zero before the last line is printed):
      S=576 (R=4) and k=5/7, K1's pixel-box mode bit-exact on the same
      ROIs, and the training assembly's score-map gradient (K1 forward,
      K3 backward) within 1e-6 relative of autograd through the plain
-     gather;
+     gather; K4 (channel extraction) bit-exact for bf16 and f32 inputs at
+     S=288 and S=576 (k=3, B=1 and B=2) and S=64 (k=5, k=7); K1 on
+     channel planes bit-exact against K1 on the NHWC map, and
+     ``assemble_masks_cuda`` with ``use_extract`` (K4 then K1) against its
+     default route;
   3. the serving slice: the full-width 576^2 model (Darknet-53, 3 heads,
      stride-2 decoder, bf16 compute, seeded random weights) through
      ``predict`` + ``paste_masks_batch`` at B=1 and B=2, with the
@@ -35,6 +39,19 @@ Phases (any failure exits non-zero before the last line is printed):
      launched; one step with ``use_pallas_nms`` gives the same metrics
      as without it; then one float32 step's loss and score-map gradient
      (TF32 off) against the CPU's;
+     the serving graphs, from the same seeded weights: (a) the JAX
+     package's bench graph (decoder_commute + fold_batchnorm), (b)
+     deploy, (c) deploy + s2d_stem, (d) int8 (calibrated on the seeded
+     batch, quantize_deploy, quant=True), each through ``predict`` +
+     paste at B=1 and B=2 with its own calibrated threshold (30
+     detections in image 0), and on each graph's score maps the
+     ``use_extract`` route (K4 + K1, bf16 and f32 maps) equal to the
+     default route and to predict's masks bit for bit; then at float32
+     (TF32 off): (a) against the unfolded default graph, (b) against
+     (a), (c) against (b), raw outputs within 1e-3 of max(1, max|ref|)
+     and the same keep set, (d) against (b) within a normalized MAE of
+     0.25 per output, and two int8 layers' int32 accumulators on the
+     card equal to the CPU's;
   4. timing with CUDA events: forward, predict and predict+paste ms at
      576^2 B=1 and B=2, and train-step ms at B=2 for both stages; each
      kernel and its plain version on the main paths' captured inputs, as
@@ -42,14 +59,21 @@ Phases (any failure exits non-zero before the last line is printed):
      were just written, as on the main path), beside its bound; one
      torch.profiler window of predict + paste at B=1 and one of a
      stage-2 train step, for the device's busy time, its idle share and
-     the top kernels.
+     the top kernels; predict and predict+paste ms of each serving graph
+     at B=1 and B=2, one profiler window each of (b) and (d) at B=1, K4
+     beside its bound and its one-call library equivalent
+     (``copy_`` of the permuted view) for bf16 and f32 maps, K1 in the
+     planes layout, and the device memory a B=2 predict+paste of (d) and
+     of (b) takes.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
-Each kernel's ``launches`` is the sum over the serving and the training
-path, and ``launches_by_path`` holds each path's own count (each read
-from its run, with the counters set to 0 just before it).  No kernel has a single PyTorch call computing the same function, so
-``library_ms`` is null for each.
+Each kernel's ``launches`` is the sum over the serving path, the
+training path and the serving graphs' path, and ``launches_by_path``
+holds each path's own count (each read from its run, with the counters
+set to 0 just before it).  Only K4 has a single PyTorch call computing
+the same function (``torch.empty(k*k,S,S).copy_(sm.permute(2,0,1))``);
+``library_ms`` is null for the others.
 """
 
 from __future__ import annotations
@@ -153,6 +177,9 @@ def kernel_kind(name: str) -> str:
     for kind, keys in (("K3 assembly backward", ("assembly_bwd_kernel",)),
                        ("K1 assembly", ("assembly_kernel",)),
                        ("K2 nms", ("nms_kernel",)),
+                       ("K4 extract", ("extract_kernel",)),
+                       ("int8 gemm", ("gemm_s8", "imma", "s8s8", "i8i8")),
+                       ("cat (concat, im2col)", ("catarraybatchedcopy",)),
                        ("batchnorm", ("bn_fw",)),
                        ("conv/gemm", ("xmma", "conv", "gemm", "cutlass")),
                        ("elementwise", ("elementwise",)),
@@ -258,6 +285,83 @@ def check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen, b, s, k, r,
     return float((got - want).abs().max()), rel
 
 
+def check_extract(torch, cuda_assembly, gen, b, s, k, dtype):
+    """K4 bit-exact against its plain version on the card, and the plain
+    version on the card against the CPU's."""
+    sm2d = torch.randn((b, s, s * k * k), generator=gen).to(dtype).cuda()
+    got = cuda_assembly.extract_planes_cuda(sm2d, k)
+    want = cuda_assembly.extract_planes_plain(sm2d, k)
+    torch.cuda.synchronize()
+    tag = f"S={s} k={k} B={b} {str(dtype)[6:]}"
+    need(got.dtype == torch.float32 and torch.equal(got, want),
+         f"K4 not bit-exact ({tag})")
+    need(torch.equal(want.cpu(), cuda_assembly.extract_planes_plain(
+        sm2d.cpu(), k)), f"K4 plain differs card vs CPU ({tag})")
+    print(f"K4 {tag}: bit-exact", flush=True)
+    return float((got - want).abs().max())
+
+
+def check_planes(torch, cuda_assembly, gen, b, s, k, d, n_pad):
+    """K1 on channel planes [B,k*k,S,S] equals K1 on the NHWC map bit for
+    bit (logits and sigmoid), and the single-image ``use_extract`` route
+    (K4 + K1 planes) equals the default route on bf16 and f32 maps."""
+    sm = torch.randn((b, s, s, k * k), generator=gen).cuda()
+    bx = random_boxes(torch, gen, b, d, n_pad).cuda()
+    planes = sm.permute(0, 3, 1, 2).contiguous()
+    for sig in (False, True):
+        got = cuda_assembly.assemble_masks_batch_cuda(planes, bx, k, sig,
+                                                      planes=True)
+        want = cuda_assembly.assemble_masks_batch_cuda(sm, bx, k, sig)
+        need(torch.equal(got, want), f"K1 planes != NHWC (S={s} k={k})")
+    for dtype in (torch.bfloat16, torch.float32):
+        one = sm[0].to(dtype)
+        ext = cuda_assembly.assemble_masks_cuda(one, bx[0], k, use_extract=True)
+        dflt = cuda_assembly.assemble_masks_cuda(one, bx[0], k)
+        need(torch.equal(ext, dflt), f"use_extract route != default "
+             f"(S={s} k={k} {dtype})")
+    torch.cuda.synchronize()
+    print(f"K1 planes S={s} B={b} k={k}: bit-exact against NHWC; "
+          f"use_extract route equal (bf16, f32)", flush=True)
+
+
+GRAPH_NAMES = {"a": "decoder_commute + fold_batchnorm (bench.py's graph)",
+               "b": "deploy", "c": "deploy + s2d_stem",
+               "d": "int8 (quant, absmax calibration)"}
+
+
+def build_graphs(api, fold, quant, s2d, cfg, sd, calib_images):
+    """The four serving graphs from one ConvBN state_dict: (a) the JAX
+    package's bench graph, decoder_commute on fold_batchnorm's weights;
+    (b) deploy; (c) deploy + s2d_stem; (d) int8, calibrated (absmax) on
+    ``calib_images``, then quantize_deploy.  Returns {key: (cfg, model)}
+    and the calibration dict."""
+    dsd = fold.deploy_variables(sd)
+    trees = {"a": (cfg.replace(decoder_commute=True), fold.fold_batchnorm(sd)),
+             "b": (cfg.replace(deploy=True), dsd),
+             "c": (cfg.replace(deploy=True, s2d_stem=True),
+                   s2d.s2d_stem_variables(dsd))}
+    absmax = quant.calibrate_deploy(
+        api.create_model(cfg.replace(quant=True, quant_calibrate=True)),
+        dsd, calib_images)
+    trees["d"] = (cfg.replace(quant=True), quant.quantize_deploy(dsd, absmax))
+    graphs = {}
+    for key, (gcfg, gsd) in trees.items():
+        graphs[key] = (gcfg, api.create_model(gcfg))
+        graphs[key][1].load_state_dict(gsd)
+    return graphs, absmax
+
+
+def rel_err(got, want):
+    """max |got - want| / max(1, max |want|)."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def norm_mae(got, want):
+    """mean |got - want| / (mean |want| + 1e-6), in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().mean() / (want.abs().mean() + 1e-6))
+
+
 def profile_window(torch, fn, calls, wall_ms):
     """One torch.profiler window of ``calls`` calls of ``fn``: device busy
     time per call, its idle share against ``wall_ms`` (the unprofiled
@@ -345,7 +449,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dis_yolo_tpu_torch.config import DISYoloConfig
-    from dis_yolo_tpu_torch.models import api
+    from dis_yolo_tpu_torch.models import api, fold, quant, s2d
     from dis_yolo_tpu_torch.ops import (_build, cuda_assembly, cuda_nms,
                                         mask_assembly, nms, paste)
     from dis_yolo_tpu_torch.train import train_step as ts
@@ -354,6 +458,7 @@ def main() -> None:
     from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
 
     # ---- phase 1: device and build ------------------------------------
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -412,6 +517,14 @@ def main() -> None:
     k3_err = max(e for e, _ in k3_cases)
     grad_rel = max(r for _, r in k3_cases)
 
+    k4_err = max(check_extract(torch, cuda_assembly, gen, b, s, k, dtype)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for b, s, k in ((1, 288, 3), (2, 288, 3), (1, 576, 3),
+                                 (2, 576, 3), (2, 64, 5), (1, 64, 7)))
+    for b, s, k in ((2, 288, 3), (1, 576, 3), (1, 64, 5), (1, 64, 7)):
+        check_planes(torch, cuda_assembly, gen, b, s, k, 30, 3)
+    print(f"phase 2 done at {time.time() - t_start:.0f} s", flush=True)
+
     # ---- phase 3: the slice -------------------------------------------
     cfg = DISYoloConfig()
     size = cfg.image_size
@@ -429,8 +542,8 @@ def main() -> None:
     thresh = calibrate_threshold(model, images[1], cfg)
     print(f"calibrated threshold {thresh:.6g}", flush=True)
 
-    def serve(m, b):
-        dets, masks = api.predict(m, images[b], windows[b], thresh)
+    def serve(m, b, th=thresh):
+        dets, masks = api.predict(m, images[b], windows[b], th)
         return (dets, masks) + paste.paste_masks_batch(masks, dets, size, size, size)
 
     cuda_assembly.assemble_masks_batch_cuda.launches = 0
@@ -607,6 +720,103 @@ def main() -> None:
           f"rel {mask_rel:.3g}, score-map grad max err / max|ref| {grad_err:.3g}",
           flush=True)
 
+    # the serving graphs (bf16, the main path's dtype): each graph from the
+    # seed-7 weights, its own calibrated threshold, predict + paste at B=1
+    # and B=2, and the use_extract route (K4 + K1 planes) on its score maps
+    print(f"training slice done at {time.time() - t_start:.0f} s", flush=True)
+    k = cfg.k_map
+    graphs, absmax = build_graphs(api, fold, quant, s2d, cfg,
+                                  model.state_dict(), batch)
+    g_thresh = {g: calibrate_threshold(m, images[1], gcfg)
+                for g, (gcfg, m) in graphs.items()}
+    print("serving graphs: thresholds " + json.dumps(g_thresh), flush=True)
+    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
+    cuda_assembly.extract_planes_cuda.launches = 0
+    cuda_nms.nms_cuda.launches = 0
+    g_outs = {}
+    for g, (gcfg, m) in graphs.items():
+        for b in (1, 2):
+            g_outs[(g, b)] = serve(m, b, g_thresh[g])
+        raws = api.forward(m, images[2])
+        dets2, masks2 = g_outs[(g, 2)][:2]
+        for i in range(2):
+            sm, bx = raws[3][i], dets2[i, :, :4]
+            dflt = cuda_assembly.assemble_masks_cuda(sm, bx, k)
+            # the head's bf16 values are the f32 map's: the cast is exact
+            for one in (sm.to(torch.bfloat16), sm):
+                ext = cuda_assembly.assemble_masks_cuda(one, bx, k,
+                                                        use_extract=True)
+                need(torch.equal(ext, dflt), f"graph {g} image {i}: "
+                     f"use_extract route differs ({one.dtype})")
+            need(torch.equal(dflt, masks2[i]),
+                 f"graph {g} image {i}: assemble_masks_cuda != predict's masks")
+    torch.cuda.synchronize()
+    graph_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
+                      "K2": cuda_nms.nms_cuda.launches,
+                      "K3": cuda_assembly.assemble_bwd_cuda.launches,
+                      "K4": cuda_assembly.extract_planes_cuda.launches}
+    print(f"serving graphs path launches: {graph_launches}", flush=True)
+    need(graph_launches["K1"] > 0 and graph_launches["K4"] > 0,
+         f"a kernel of the serving graphs' path never launched: {graph_launches}")
+    for (g, b), (dets, masks, full, valid, sem) in g_outs.items():
+        ms = cfg.mask_size
+        need(tuple(dets.shape) == (b, 30, 6) and tuple(masks.shape) == (b, 30, ms, ms)
+             and tuple(full.shape) == (b, 30, size, size),
+             f"graph {g} B={b}: shapes {tuple(dets.shape)} {tuple(masks.shape)}")
+        need(bool(torch.isfinite(dets).all() and torch.isfinite(masks).all()),
+             f"graph {g} B={b}: non-finite outputs")
+        need(int((dets[0, :, 5] > 0).sum()) == 30,
+             f"graph {g} B={b}: {int((dets[0, :, 5] > 0).sum())} detections in image 0")
+        need(bool(valid[0].any() and full.any()), f"graph {g} B={b}: nothing pasted")
+        print(f"graph {g} ({GRAPH_NAMES[g]}) B={b}: "
+              f"{int((dets[..., 5] > 0).sum())} detections, {int(valid.sum())} "
+              f"pasted; use_extract route bit-equal", flush=True)
+
+    # the serving graphs at float32 (TF32 off) against each other
+    cfg32 = cfg.replace(compute_dtype="float32")
+    model32 = api.create_model(cfg32)
+    model32.load_state_dict(model.state_dict())
+    graphs32, absmax32 = build_graphs(api, fold, quant, s2d, cfg32,
+                                      model.state_dict(), batch)
+    thresh32 = calibrate_threshold(model32, images[1], cfg32)
+    held = {}
+    for name in ("convolutional54", "convolutional80"):
+        getattr(graphs32["d"][1], name).register_forward_pre_hook(
+            lambda mod, a, _n=name: held.__setitem__(_n, a[0]))
+    f32 = {}
+    for g, (gcfg, m) in [("default", (cfg32, model32))] + list(graphs32.items()):
+        raws = api.forward(m, images[2])
+        dets, _ = api.predict_from_outputs(gcfg, raws, windows[2], thresh32)
+        f32[g] = (raws, dets[..., 5] > 0)
+    graph_checks = {}
+    for g, base in (("a", "default"), ("b", "a"), ("c", "b")):
+        errs = [rel_err(x, y) for x, y in zip(f32[g][0], f32[base][0])]
+        same_keep = torch.equal(f32[g][1], f32[base][1])
+        graph_checks[f"{g}_vs_{base}"] = {"max_rel_err": errs,
+                                          "same_keep_set": same_keep,
+                                          "kept": int(f32[g][1].sum())}
+        # exact algebra, float32 summed in other orders: ~1e-6 expected
+        need(max(errs) <= 1e-3, f"f32 graph {g} vs {base}: rel err {errs}")
+        need(same_keep, f"f32 graph {g} vs {base}: keep sets differ")
+    maes = [norm_mae(x, y) for x, y in zip(f32["d"][0], f32["b"][0])]
+    graph_checks["d_vs_b_norm_mae"] = maes
+    need(max(maes) < 0.25, f"f32 int8 graph vs deploy: normalized MAE {maes}")
+    m_d32 = graphs32["d"][1]
+    for name, x in held.items():
+        layer = getattr(m_d32, name)
+        x_q = quant.quantize_input(x, layer.inv_sx)
+        acc = quant.int8_conv(x_q, layer.w_q, layer.stride)
+        x_q_cpu = quant.quantize_input(x.cpu(), layer.inv_sx.cpu())
+        acc_cpu = quant.int8_conv(x_q_cpu, layer.w_q.cpu(), layer.stride)
+        need(torch.equal(x_q.cpu(), x_q_cpu), f"{name}: int8 input card != CPU")
+        need(torch.equal(acc.cpu(), acc_cpu), f"{name}: int32 accumulators card != CPU")
+        graph_checks[f"{name}_int32_equal_cpu"] = {
+            "shape": list(acc.shape), "max_abs_acc": int(acc.abs().max())}
+    print("f32 serving graphs: " + json.dumps(graph_checks), flush=True)
+    del model32, graphs32, f32, held
+    print(f"serving graphs done at {time.time() - t_start:.0f} s", flush=True)
+
     # ---- phase 4: timing ----------------------------------------------
     timings = {}
     for b in (1, 2):
@@ -700,10 +910,77 @@ def main() -> None:
           f"{k3_bound[1]}); K1 pixel-box R={k1t_args[1].shape[1]}: "
           f"{per_call['K1_train_pixel_boxes_device'] * 1e3:.1f} us", flush=True)
 
+    # the serving graphs: predict and predict+paste, B=1 and B=2
+    for g, (gcfg, m) in graphs.items():
+        for b in (1, 2):
+            timings[f"{g}_predict_ms_b{b}"] = cuda_ms(
+                torch, lambda: api.predict(m, images[b], windows[b], g_thresh[g]),
+                10, repeats=3)
+            timings[f"{g}_predict_paste_ms_b{b}"] = cuda_ms(
+                torch, lambda: serve(m, b, g_thresh[g]), 10, repeats=3)
+    print("serving graph timings " + json.dumps(
+        {k_: v for k_, v in timings.items() if k_[1] == "_"}), flush=True)
+    graph_traces = {}
+    for g in ("b", "d"):
+        m = graphs[g][1]
+        graph_traces[g] = profile_window(
+            torch, lambda: serve(m, 1, g_thresh[g]), 3,
+            timings[f"{g}_predict_paste_ms_b1"])
+        print(f"trace predict+paste B=1 graph {g}: "
+              + json.dumps(graph_traces[g]), flush=True)
+
+    # K4 at the serving graphs' shape (S=288, k=3, one image, as
+    # assemble_masks_cuda calls it) on graph (b)'s score map, bf16 (the
+    # head's dtype) and f32, beside its bound and the one PyTorch call
+    # that computes the same function
+    sm_b = api.forward(graphs["b"][1], images[1])[3]
+    s4, kk = sm_b.shape[1], k * k
+    k4 = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        sm2d = sm_b.to(dtype).reshape(1, s4, s4 * kk).contiguous()
+        lib_out = torch.empty((kk, s4, s4), dtype=torch.float32, device="cuda")
+        lib = lambda: lib_out.copy_(sm2d.view(s4, s4, kk).permute(2, 0, 1))
+        need(torch.equal(lib()[None], cuda_assembly.extract_planes_cuda(sm2d, k)),
+             f"K4 vs the library copy_ ({tag})")
+        k4[tag] = {
+            "ms": graph_ms(torch, lambda: cuda_assembly.extract_planes_cuda(sm2d, k)),
+            "plain_ms": graph_ms(torch, lambda: cuda_assembly.extract_planes_plain(sm2d, k)),
+            "library_ms": graph_ms(torch, lib),
+            "bound": bound(sm2d.numel() * sm2d.element_size() + kk * s4 * s4 * 4, 0)}
+        print(f"K4 S={s4} k={k} {tag} in: {k4[tag]['ms'] * 1e3:.2f} us (plain "
+              f"{k4[tag]['plain_ms'] * 1e3:.2f} us, copy_ "
+              f"{k4[tag]['library_ms'] * 1e3:.2f} us, bound "
+              f"{k4[tag]['bound'][0] * 1e3:.2f} us by {k4[tag]['bound'][1]})",
+              flush=True)
+    # K1 on channel planes, on the serving path's captured inputs
+    k1_planes = sm.permute(0, 3, 1, 2).contiguous()
+    per_call["K1_planes_device"] = graph_ms(
+        torch, lambda: cuda_assembly.assemble_masks_batch_cuda(
+            k1_planes, bx, k, planes=True))
+    print(f"K1 planes S={sm.shape[1]} D={bx.shape[1]}: "
+          f"{per_call['K1_planes_device'] * 1e3:.1f} us (NHWC {k1_ms * 1e3:.1f} us)",
+          flush=True)
+
+    # device memory of a B=2 predict+paste: int8 (im2col) against deploy
+    peak_all_gb = torch.cuda.max_memory_allocated() / 1e9
+    memory = {}
+    for g in ("d", "b"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        serve(graphs[g][1], 2, g_thresh[g])
+        torch.cuda.synchronize()
+        memory[g] = {"allocated_before_gb": before / 1e9,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "working_set_gb":
+                         (torch.cuda.max_memory_allocated() - before) / 1e9}
+    print("predict+paste B=2 device memory: " + json.dumps(memory), flush=True)
+
     def path_launches(name):
-        return {"launches": launches[name] + train_launches[name],
-                "launches_by_path": {"serving": launches[name],
-                                     "training": train_launches[name]}}
+        by_path = {"serving": launches.get(name, 0),
+                   "training": train_launches.get(name, 0),
+                   "serving_graphs": graph_launches[name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
         {"name": "K1 mask assembly + sigmoid", "route": "cuda",
@@ -726,6 +1003,13 @@ def main() -> None:
          **path_launches("K3"), "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "K4 score-map channel extraction", "route": "cuda",
+         "source": "dis_yolo_tpu_torch/csrc/extract.cu",
+         "replaces": "dis_yolo_tpu/ops/pallas_assembly.py:233",
+         **path_launches("K4"), "max_abs_err": k4_err, "ms": k4["bf16"]["ms"],
+         "plain_ms": k4["bf16"]["plain_ms"], "bound_ms": k4["bf16"]["bound"][0],
+         "bound_by": k4["bf16"]["bound"][1],
+         "library_ms": k4["bf16"]["library_ms"]},
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -747,10 +1031,23 @@ def main() -> None:
                        "k3_shapes": {"B": g_rois.shape[0], "R": g_rois.shape[1],
                                      "S": s3, "k": k3_k,
                                      "roi_pixels_inside": k3_inside},
-                       "max_memory_allocated_gb":
-                           torch.cuda.max_memory_allocated() / 1e9,
+                       "max_memory_allocated_gb": peak_all_gb,
+                       "launches_serving_graphs_path": graph_launches,
+                       "serving_graph_thresholds": g_thresh,
+                       "serving_graph_checks_f32": graph_checks,
+                       "serving_graph_traces": graph_traces,
+                       "k4": {t: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                                  "library_ms": v["library_ms"],
+                                  "bound_ms": v["bound"][0],
+                                  "bound_by": v["bound"][1]}
+                              for t, v in k4.items()},
+                       "serving_graph_memory_b2": memory,
+                       "int8_calibration_absmax": absmax,
+                       "seconds": time.time() - t_start,
                        "kernels": kernels},
                       f, indent=1)
+    print(f"chip_smoke: all phases passed in {time.time() - t_start:.0f} s",
+          flush=True)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

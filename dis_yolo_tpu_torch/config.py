@@ -4,8 +4,9 @@ A copy of ``dis_yolo_tpu/config.py`` (the port imports nothing of the JAX
 package): the same frozen dataclass with the same field names, defaults
 and properties, so the JAX reference and the port are built from the same
 keyword arguments.  The comments describe what each knob means in the
-port; knobs the port does not read yet (deploy, quant, mesh, data
-pipeline) are kept for that parity and documented in the JAX package's copy.
+port; knobs the port does not read yet (mesh, data pipeline, some
+training knobs) are kept for that parity and documented in the JAX
+package's copy.
 """
 
 from __future__ import annotations
@@ -87,16 +88,27 @@ class DISYoloConfig:
     # the port's assembly always runs its CUDA kernel on CUDA tensors; False
     # (the JAX package's gather path) is not ported
     use_pallas_assembly: bool = True
-    # ---- not ported yet: serving-graph variants and training knobs ---------
-    # (`check_ported` refuses the graph variants among them,
-    # `check_trainable` the training knobs; `grad_clip_norm` and
-    # `skip_nonfinite_updates` are read by the train step)
+    # ---- serving graphs (inference only: `check_trainable` refuses them) ---
+    # deploy: ConvBN blocks become conv + folded-BN bias + leaky
+    # (models/layers.DeployConv; weights from models/fold.deploy_variables)
     deploy: bool = False
+    # int8 post-training quantization (models/quant.py): the conv_bn layers
+    # of `quant_layers` run s8 x s8 -> s32 with a float32 dequant epilogue;
+    # weights from quant.quantize_deploy.  quant_calibrate builds the float
+    # graph that records each such layer's input absmax and
+    # `quant_calib_pct` percentile (quant.calibrate_deploy)
     quant: bool = False
     quant_calibrate: bool = False
     quant_layers: Tuple[int, ...] = tuple(range(5, 86))
     quant_calib_pct: float = 99.9
+    # space-to-depth stem (deploy only, mask_stride != 1; models/s2d.py):
+    # conv1 + conv2 rewritten exactly as 12->128 3x3 and 128->64 2x2 convs
+    # at half resolution; weights from s2d.s2d_stem_variables
     s2d_stem: bool = False
+    # ---- not ported yet: training knobs -------------------------------------
+    # (`check_ported` refuses `remat`, `check_trainable` the others;
+    # `grad_clip_norm` and `skip_nonfinite_updates` are read by the train
+    # step)
     device_side_augs: bool = False
     loader_workers: int = 0
     max_keep_ckpt: int = 0
@@ -106,6 +118,9 @@ class DISYoloConfig:
     grad_clip_norm: float = 0.0
     steps_per_dispatch: int = 1
     device_corpus: bool = False
+    # decoder fusion nodes (layers 77/80/83) run their 1x1 conv before the
+    # nearest upsample, the kernel split by rows (eval only: refused by
+    # `check_trainable`; ignored by the deploy and quant graphs, as in JAX)
     decoder_commute: bool = False
     # NMS through the hand-written CUDA kernel (ops/cuda_nms.py) when the
     # tensors are on CUDA; otherwise, and by default, `nms_engine` runs
@@ -170,8 +185,9 @@ class DISYoloConfig:
     def check_trainable(self) -> None:
         """Raise if a training knob asks for what the port's train step
         does not have yet (gradient accumulation, on-device augmentation
-        or corpus, multi-step dispatch, sync-BN), or ``check_ported``
-        refuses the graph (``remat`` among others)."""
+        or corpus, multi-step dispatch, sync-BN), the graph is one of the
+        inference-only serving graphs or the commuted decoder, or
+        ``check_ported`` refuses the graph (``remat``)."""
         self.check_ported()
         for name, ported in UNPORTED_TRAIN_FIELDS.items():
             value = getattr(self, name)
@@ -191,15 +207,16 @@ class DISYoloConfig:
         return "\n".join(lines) + "\n"
 
 
-# fields of the serving graph whose non-default values the port lacks
-UNPORTED_GRAPH_FIELDS = ("use_pallas_assembly", "deploy", "quant",
-                         "quant_calibrate", "s2d_stem", "remat",
-                         "decoder_commute")
+# fields of the graph whose non-default values the port lacks
+UNPORTED_GRAPH_FIELDS = ("use_pallas_assembly", "remat")
 
-# training knobs and the one value of each that the train step supports
-# (`remat` is refused with the graph variants)
+# training knobs and graphs, and the one value of each that the train step
+# supports (`remat` is refused with the graph variants); the serving
+# graphs are inference only and `decoder_commute` is ported for eval only
 UNPORTED_TRAIN_FIELDS = {"grad_accum": 1, "device_side_augs": False,
                          "device_corpus": False, "steps_per_dispatch": 1,
-                         "bn_axis": None}
+                         "bn_axis": None, "deploy": False, "quant": False,
+                         "quant_calibrate": False, "s2d_stem": False,
+                         "decoder_commute": False}
 
 DEFAULT_CONFIG = DISYoloConfig()

@@ -16,8 +16,10 @@
 //     box), writes zeros with no bin math (the TPU kernel's `intersects`);
 //   * otherwise each thread takes pixels of the tile, finds the half-open
 //     row and column bins, reads channel ky*k+kx straight from the NHWC
-//     [S, S, k*k] map (no transpose) and writes 1/(1+exp(-x)) inside the
-//     box (or the raw logit) and an exact 0 outside.
+//     [S, S, k*k] map (no transpose) -- or, in planes mode, from channel
+//     planes [k*k, S, S], the layout K4 (extract.cu) writes, as the TPU
+//     kernel read _extract_planes' output -- and writes 1/(1+exp(-x))
+//     inside the box (or the raw logit) and an exact 0 outside.
 //
 // Exactness: the grid-line arithmetic uses __fmul_rn/__fdiv_rn/__fadd_rn
 // and rintf, and the file is built with -fmad=false, so every rounding
@@ -48,7 +50,7 @@ __device__ __forceinline__ int bin_of(const float* lines, int k, float pos) {
 __global__ void __launch_bounds__(kThreads)
 assembly_kernel(const float* __restrict__ sm, const float* __restrict__ boxes,
                 float* __restrict__ out, int n_box, int size, int k,
-                int apply_sigmoid, int pixel_boxes) {
+                int apply_sigmoid, int pixel_boxes, int planes) {
   __shared__ float gy[kMaxK + 1];
   __shared__ float gx[kMaxK + 1];
   const int tile = blockIdx.x;
@@ -96,7 +98,8 @@ assembly_kernel(const float* __restrict__ sm, const float* __restrict__ boxes,
     float v = 0.0f;
     if (fr >= top && fr < bottom && fc >= left && fc < right) {
       const int ch = bin_of(gy, k, fr) * k + bin_of(gx, k, fc);
-      v = src[((size_t)r * size + c) * kk + ch];
+      v = planes ? src[((size_t)ch * size + r) * size + c]
+                 : src[((size_t)r * size + c) * kk + ch];
       if (apply_sigmoid) v = 1.0f / (1.0f + expf(-v));
     }
     dst[p] = v;
@@ -105,18 +108,20 @@ assembly_kernel(const float* __restrict__ sm, const float* __restrict__ boxes,
 
 }  // namespace
 
-// scoremaps [B,S,S,k*k] f32, boxes [B,D,4] f32 yxyx (normalized, or
-// rounded score-map pixels when pixel_boxes != 0), out [B,D,S,S] f32.
+// scoremaps [B,S,S,k*k] f32 (or [B,k*k,S,S] when planes != 0), boxes
+// [B,D,4] f32 yxyx (normalized, or rounded score-map pixels when
+// pixel_boxes != 0), out [B,D,S,S] f32.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int dis_assemble_masks(const float* scoremaps,
                                   const float* boxes, float* out,
                                   int batch, int n_box, int size, int k,
                                   int apply_sigmoid, int pixel_boxes,
-                                  void* stream) {
+                                  int planes, void* stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   if (batch == 0 || n_box == 0 || size == 0) return 0;
   const dim3 grid((size + kTileRows - 1) / kTileRows, n_box, batch);
   assembly_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      scoremaps, boxes, out, n_box, size, k, apply_sigmoid, pixel_boxes);
+      scoremaps, boxes, out, n_box, size, k, apply_sigmoid, pixel_boxes,
+      planes);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,12 @@ run never drifts to the CPU.  On CUDA the mask assembly launches its
 hand-written kernel (``ops.cuda_assembly``) and, with
 ``cfg.use_pallas_nms``, so does NMS (``ops.cuda_nms``); on the CPU both
 run their plain PyTorch versions.
+
+The serving graphs (``deploy``, ``quant``, ``quant_calibrate``,
+``s2d_stem``, ``decoder_commute``) run through the same entry points with
+weights from ``models.fold``, ``models.s2d`` and ``models.quant``.
+``predict`` assembles from the NHWC score maps, as the JAX package's
+``predict`` does (it never sets ``use_extract``).
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.models.dis_yolo import DISYolo
-from dis_yolo_tpu_torch.models.layers import ConvBias, ConvBN
+from dis_yolo_tpu_torch.models.layers import ConvBias, ConvBN, DeployConv
+from dis_yolo_tpu_torch.models.quant import QuantConv
 from dis_yolo_tpu_torch.ops import nms
 from dis_yolo_tpu_torch.ops.cuda_assembly import assemble_masks_batch_cuda
 from dis_yolo_tpu_torch.ops.decode import decode_all
@@ -58,19 +65,22 @@ def init_model(cfg: DISYoloConfig, seed: int = 0, device=None) -> DISYolo:
     """``create_model`` with Flax's initializers drawn from a seeded CPU
     ``torch.Generator`` (so a seed gives the same weights on every
     device): xavier-uniform conv kernels, zero biases, BN scale 1, bias 0,
-    mean 0, var 1."""
+    mean 0, var 1.  An int8 layer keeps the JAX package's initial values
+    (``w_q`` and ``bias`` 0, ``inv_sx`` and ``s_out`` 1)."""
     model = create_model(cfg, device)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name in sorted(model._modules,
                            key=lambda n: int(n[len("convolutional"):])):
             layer = model._modules[name]
+            if isinstance(layer, QuantConv) and not layer.calibrate:
+                continue
             w = layer.conv.weight
             cout, cin, kh, kw = w.shape
             bound = (6.0 / (kh * kw * (cin + cout))) ** 0.5
             w.copy_(torch.empty(w.shape).uniform_(-bound, bound,
                                                   generator=gen))
-            if isinstance(layer, ConvBias):
+            if isinstance(layer, (ConvBias, DeployConv, QuantConv)):
                 layer.conv.bias.zero_()
             elif isinstance(layer, ConvBN):
                 layer.bn.reset_parameters()

@@ -11,10 +11,16 @@ The public outputs keep the JAX layouts and dtype: raw heads
 ``[B, H/s, W/s, 3, 5+C]`` and score maps ``[B, S, S, k^2]``, NHWC, all
 float32.  Inside, the convs run NCHW on a channels-last view of the NHWC
 input.  ``model.train()`` is Flax's ``train=True``: BatchNorm uses batch
-statistics, except in the layers of ``cfg.locked_layers``.  Not ported
-yet, and refused by ``cfg.check_ported()``: ``decoder_commute``,
-``deploy``, ``quant``, ``s2d_stem`` and ``remat``; ``stop_stage`` is not
-an argument here.
+statistics, except in the layers of ``cfg.locked_layers``.
+
+The serving graphs choose each conv_bn layer as the JAX package does:
+``QuantConv`` for ``cfg.quant`` and an id in ``cfg.quant_layers``, else
+``DeployConv`` for ``cfg.deploy or cfg.quant``, else ``ConvBN`` (the
+decoder's fusion nodes 77/80/83 as ``CommutedConcatConvBN`` with
+``cfg.decoder_commute`` outside the deploy and quant graphs).
+``cfg.s2d_stem`` replaces conv1/conv2 by the space-to-depth stem
+(``models/s2d.py``).  ``remat`` is refused by ``cfg.check_ported()``;
+``stop_stage`` is not an argument here.
 """
 
 from __future__ import annotations
@@ -23,15 +29,27 @@ import torch
 from torch import nn
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
-from dis_yolo_tpu_torch.models.layers import (ConvBias, ConvBN,
+from dis_yolo_tpu_torch.models.layers import (CommutedConcatConvBN, ConvBias,
+                                              ConvBN, DeployConv,
                                               upsample2x_nearest)
+from dis_yolo_tpu_torch.models.quant import QuantConv
+from dis_yolo_tpu_torch.models.s2d import space_to_depth
+
+# the decoder's fusion nodes: ConvBN1x1(concat([skip, up2(small)]))
+_DECODER_FUSION = (77, 80, 83)
 
 
 def _layer_specs(cfg: DISYoloConfig):
     """(idx, kind, cin, features, kernel, stride) for every conv layer."""
-    specs = [(1, "cbn", 3, 32, 3, 1), (2, "cbn", 32, 64, 3, 2),
-             (3, "cbn", 64, 32, 1, 1), (4, "cbn", 32, 64, 3, 1),
-             (5, "cbn", 64, 128, 3, 2)]
+    if cfg.s2d_stem:
+        if not cfg.deploy or cfg.mask_stride == 1:
+            raise ValueError("s2d_stem requires deploy=True and "
+                             "mask_stride != 1 (conv1 skip unavailable)")
+        stem = [(1, "cbn", 12, 128, 3, 1), (2, "cbn", 128, 64, 2, 1)]
+    else:
+        stem = [(1, "cbn", 3, 32, 3, 1), (2, "cbn", 32, 64, 3, 2)]
+    specs = stem + [(3, "cbn", 64, 32, 1, 1), (4, "cbn", 32, 64, 3, 1),
+                    (5, "cbn", 64, 128, 3, 2)]
     for i in (6, 8):
         specs += [(i, "cbn", 128, 64, 1, 1), (i + 1, "cbn", 64, 128, 3, 1)]
     specs.append((10, "cbn", 128, 256, 3, 2))
@@ -87,12 +105,25 @@ class DISYolo(nn.Module):
         cfg.check_ported()
         self.cfg = cfg
         dtype = getattr(torch, cfg.compute_dtype)
+        serving = cfg.deploy or cfg.quant
+        self.commute = cfg.decoder_commute and not serving
         for idx, kind, cin, feat, kernel, stride in _layer_specs(cfg):
-            if kind == "cbn":
+            if kind == "bias":
+                layer = ConvBias(cin, feat, dtype)
+            elif cfg.quant and idx in cfg.quant_layers:
+                layer = QuantConv(cin, feat, kernel, stride, cfg.alpha, dtype,
+                                  calibrate=cfg.quant_calibrate,
+                                  calib_pct=cfg.quant_calib_pct)
+            elif serving:
+                # quant graphs keep their other layers (the stem by
+                # default) in the float deploy form
+                layer = DeployConv(cin, feat, kernel, stride, cfg.alpha, dtype)
+            elif self.commute and idx in _DECODER_FUSION:
+                layer = CommutedConcatConvBN(cin, feat, cfg.alpha, dtype,
+                                             lock=idx in cfg.locked_layers)
+            else:
                 layer = ConvBN(cin, feat, kernel, stride, cfg.alpha, dtype,
                                lock=idx in cfg.locked_layers)
-            else:
-                layer = ConvBias(cin, feat, dtype)
             self.add_module(f"convolutional{idx}", layer)
         self.compute_dtype = dtype
 
@@ -100,7 +131,10 @@ class DISYolo(nn.Module):
         return getattr(self, f"convolutional{idx}")
 
     def _up_concat_cbn(self, idx: int, skip, small):
-        """Decoder fusion node: ConvBN1x1(concat([skip, up2(small)]))."""
+        """Decoder fusion node: ConvBN1x1(concat([skip, up2(small)])), the
+        1x1 before the upsample with ``decoder_commute``."""
+        if self.commute and idx in _DECODER_FUSION:
+            return self._c(idx)(skip, small)
         return self._c(idx)(torch.cat([skip, upsample2x_nearest(small)], 1))
 
     @staticmethod
@@ -116,9 +150,16 @@ class DISYolo(nn.Module):
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
 
         # ---- Darknet-53 backbone ----
-        x = c(1)(x)
-        skip1 = x                                     # 1/1, 32ch
-        x = c(2)(x)
+        if cfg.s2d_stem:
+            # conv1' on the (a, b, ch)-packed input emits conv1's output
+            # repacked at half resolution; conv2' (2x2, stride 1, 'SAME'
+            # pads (0, 1)) lands on conv2's output; no full-res tap
+            x = c(2)(c(1)(space_to_depth(x)))
+            skip1 = None
+        else:
+            x = c(1)(x)
+            skip1 = x                                 # 1/1, 32ch
+            x = c(2)(x)
         x = x + c(4)(c(3)(x))
         skip2 = x                                     # 1/2, 64ch
         x = c(5)(x)

@@ -17,6 +17,10 @@ JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
   * a locked layer (``lock=True``, the reference's transfer-learning
     freeze) normalizes with its running statistics and leaves them
     untouched even in train mode.
+
+The serving graphs add ``DeployConv`` (conv + bias + leaky, BN folded
+away) and ``CommutedConcatConvBN`` (the decoder's concat 1x1 run before
+the upsample); ``models/quant.py`` holds the int8 ``QuantConv``.
 """
 
 from __future__ import annotations
@@ -96,6 +100,11 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
                       self.stride)
+        return self._bn_act(x)
+
+    def _bn_act(self, x: torch.Tensor) -> torch.Tensor:
+        """BatchNorm in float32 on the conv output, back to the compute
+        dtype, leaky ReLU."""
         bn = self.bn
         if self.training and not self.lock:
             x = batch_norm_train(x.float(), bn)
@@ -103,6 +112,47 @@ class ConvBN(nn.Module):
             x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
                              bn.weight, bn.bias, False, 0.0, BN_EPS)
         return leaky_relu(x.to(self.dtype), self.alpha)
+
+
+class CommutedConcatConvBN(ConvBN):
+    """ConvBN 1x1 over ``concat([skip, up2(small)])`` without building the
+    concat: the kernel is split by input rows at ``cs`` (the skip's
+    channels) and the ``small`` branch's 1x1 runs BEFORE the nearest
+    upsample (a 1x1 conv commutes with nearest duplication).  Its
+    parameters are the ConvBN's it replaces (``conv.weight`` [O, cs+cu,
+    1, 1], ``bn.*``), so one state_dict drives both graphs.  The two
+    partial sums are added in the compute dtype, as in JAX."""
+
+    def __init__(self, cin: int, features: int, alpha: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16, lock: bool = False):
+        super().__init__(cin, features, 1, 1, alpha, dtype, lock)
+
+    def forward(self, skip: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
+        k = self.conv.weight.to(self.dtype)
+        cs = skip.shape[1]
+        out_s = conv_same(skip.to(self.dtype), k[:, :cs], None, 1)
+        out_u = conv_same(small.to(self.dtype), k[:, cs:], None, 1)
+        return self._bn_act(out_s + upsample2x_nearest(out_u))
+
+
+class DeployConv(nn.Module):
+    """Inference-only fused block: conv + folded-BN bias + leaky ReLU, all
+    in the compute dtype (no BatchNorm, no float32 round trip).  Weights
+    from ``models.fold.deploy_variables``."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 stride: int = 1, alpha: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, features, kernel, stride, bias=True)
+        self.stride = stride
+        self.alpha = alpha
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
+                      self.conv.bias.to(self.dtype), self.stride)
+        return leaky_relu(x, self.alpha)
 
 
 class ConvBias(nn.Module):

@@ -14,7 +14,18 @@ of the JAX package's variables); the port never imports JAX to read it.
   params/convolutionalN/bn/bias                   convolutionalN.bn.bias
   batch_stats/convolutionalN/bn/mean              convolutionalN.bn.running_mean
   batch_stats/convolutionalN/bn/var               convolutionalN.bn.running_var
+  params/convolutionalN/w_q   int8 [kh,kw,I,O]    convolutionalN.w_q int8
+                                                  [O,I,kh,kw]
+  params/convolutionalN/{bias,inv_sx,s_out}       convolutionalN.{bias,
+                                                  inv_sx,s_out}
   ==============================================  ===========================
+
+Besides the ConvBN tree this carries the serving graphs' trees both ways:
+the deploy tree (``{params}`` only, ``conv/{kernel, bias}`` per layer, also
+the s2d stem's 3x3x12x128 and 2x2x128x64 kernels) and the int8 tree of
+``quantize_deploy`` (``w_q``, ``bias``, scalar ``inv_sx``, ``s_out`` [O];
+its unquantized layers in the deploy form).  A tree without
+``batch_stats`` comes back without it.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 _PARAM_NAMES = {("bn", "scale"): "bn.weight", ("bn", "bias"): "bn.bias",
                 ("conv", "bias"): "conv.bias"}
 _STAT_NAMES = {"mean": "bn.running_mean", "var": "bn.running_var"}
+_QUANT_LEAVES = ("w_q", "bias", "inv_sx", "s_out")
 
 
 def _layer_order(name: str) -> int:
@@ -40,6 +52,14 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for layer in sorted(params, key=_layer_order):
         for block, leaves in params[layer].items():
+            if block == "w_q":                      # int8 HWIO -> OIHW
+                sd[f"{layer}.w_q"] = torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(leaves, np.int8).transpose(3, 2, 0, 1)))
+                continue
+            if block in _QUANT_LEAVES:
+                sd[f"{layer}.{block}"] = torch.from_numpy(
+                    np.array(leaves, np.float32))
+                continue
             for leaf, value in leaves.items():
                 value = np.asarray(value, np.float32)
                 if (block, leaf) == ("conv", "kernel"):
@@ -66,8 +86,14 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         layer, rest = key.split(".", 1)
         if rest == "bn.num_batches_tracked":
             continue
+        if rest == "w_q":
+            params.setdefault(layer, {})["w_q"] = np.ascontiguousarray(
+                value.detach().cpu().numpy().transpose(2, 3, 1, 0))
+            continue
         value = value.detach().cpu().float().numpy()
-        if rest == "conv.weight":
+        if rest in _QUANT_LEAVES:
+            params.setdefault(layer, {})[rest] = value
+        elif rest == "conv.weight":
             params.setdefault(layer, {}).setdefault("conv", {})["kernel"] = \
                 np.ascontiguousarray(value.transpose(2, 3, 1, 0))
         elif rest in inv_params:
@@ -75,4 +101,5 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             params.setdefault(layer, {}).setdefault(block, {})[leaf] = value
         else:
             stats.setdefault(layer, {}).setdefault("bn", {})[inv_stats[rest]] = value
-    return {"params": params, "batch_stats": stats}
+    return {"params": params, "batch_stats": stats} if stats else \
+        {"params": params}

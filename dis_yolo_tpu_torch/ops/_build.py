@@ -32,13 +32,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel library: (C entry point, its argtypes); every one returns int
 SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     # scoremaps, boxes, out, batch, n_box, size, k, apply_sigmoid,
-    # pixel_boxes, stream
+    # pixel_boxes, planes, stream
     "assembly": ("dis_assemble_masks",
-                 (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+                 (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     # boxes_px, g, out, batch, n_roi, size, k, stream
     "assembly_bwd": ("dis_assemble_bwd", (_P, _P, _P, _I, _I, _I, _I, _P)),
     # boxes, scores, classes, valid, out, batch, k, max_det, thr, stream
     "nms": ("dis_nms", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
+    # in, out, batch, size, k*k, in_bf16, stream
+    "extract": ("dis_extract_planes", (_P, _P, _I, _I, _I, _I, _P)),
 }
 KERNELS = tuple(SIGNATURES)
 

@@ -13,7 +13,9 @@ from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.models import api
 from dis_yolo_tpu_torch.ops import _build
 from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_bwd_cuda,
-                                                  assemble_masks_batch_cuda)
+                                                  assemble_masks_batch_cuda,
+                                                  assemble_masks_cuda,
+                                                  extract_planes_cuda)
 from dis_yolo_tpu_torch.ops.cuda_nms import nms_cuda
 from dis_yolo_tpu_torch.train import train_step
 
@@ -48,6 +50,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and files[-1].exists()
+    port = ROOT / "dis_yolo_tpu_torch"
+    for module in ("models/fold.py", "models/s2d.py", "models/quant.py",
+                   "ops/cuda_assembly.py"):      # K4's wrapper lives here
+        assert port / module in files, module
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -90,20 +96,46 @@ def test_entry_points_reject_tensors_on_another_device():
         api.forward(model, images, device="cpu")
 
 
+# the serving graphs: ported for inference, refused by the train step
+SERVING_GRAPH_FIELDS = ("deploy", "quant", "quant_calibrate", "s2d_stem",
+                        "decoder_commute")
+
+
 @pytest.mark.parametrize("field,value", [
     ("use_pallas_assembly", False), ("deploy", True), ("quant", True),
     ("quant_calibrate", True), ("s2d_stem", True), ("remat", True),
     ("decoder_commute", True)])
 def test_unported_config_raises(field, value):
-    """A config that selects a graph the port lacks raises: it never runs
-    as the plain default model."""
+    """A config that selects a graph the port lacks (use_pallas_assembly
+    False, remat) raises: it never runs as the plain default model.  The
+    five serving-graph fields are ported: such a config builds, serves
+    and passes check_ported, and check_trainable and the train entry
+    points refuse it (s2d_stem needs deploy=True, else ValueError as in
+    JAX)."""
     cfg = DISYoloConfig(image_size=64)
     bad = cfg.replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        api.create_model(bad, device="cpu")
     raws = [np.zeros((1, g, g, 3, 8), np.float32) for g in cfg.grid_sizes()]
     raws.append(np.zeros((1, 32, 32, 9), np.float32))
     windows = np.array([[0.0, 0.0, 1.0, 1.0]], np.float32)
+    if field in SERVING_GRAPH_FIELDS:
+        with pytest.raises(NotImplementedError, match=field):
+            bad.check_trainable()
+        if field == "s2d_stem":
+            with pytest.raises(ValueError, match="s2d_stem requires deploy"):
+                api.create_model(bad, device="cpu")
+            bad = bad.replace(deploy=True)
+        bad.check_ported()
+        model = api.create_model(bad, device="cpu")
+        images = np.zeros((1, 64, 64, 3), np.float32)
+        dets, masks = api.predict(model, images, windows, device="cpu")
+        assert dets.shape == (1, 30, 6) and masks.shape == (1, 30, 32, 32)
+        for call in (lambda: train_step.init_train_state(model, device="cpu"),
+                     lambda: train_step.make_train_step(model, device="cpu")):
+            with pytest.raises(NotImplementedError, match="train step"):
+                call()
+        return
+    with pytest.raises(NotImplementedError, match=field):
+        api.create_model(bad, device="cpu")
     with pytest.raises(NotImplementedError, match=field):
         api.predict_from_outputs(bad, raws, windows, device="cpu")
     dets, masks = api.predict_from_outputs(cfg, raws, windows, device="cpu")
@@ -175,6 +207,36 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
         nms_cuda(torch.zeros((1, 2048, 4)), torch.zeros((1, 2048)),
                  torch.zeros((1, 2048), dtype=torch.int32),
                  torch.ones((1, 2048), dtype=torch.bool), 5, 0.3)
+
+
+def test_extract_wrapper_never_falls_back(monkeypatch):
+    """K4's wrapper and the single-image assembly: CPU tensors take the
+    plain versions without building anything, other placements and bad
+    shapes or dtypes raise."""
+    def no_build(name):
+        raise AssertionError(f"kernel {name} built for a non-CUDA call")
+    monkeypatch.setattr(_build, "load", no_build)
+
+    sm2d = torch.zeros((2, 8, 8 * 9), dtype=torch.bfloat16)
+    before = extract_planes_cuda.launches
+    out = extract_planes_cuda(sm2d, 3)
+    assert out.shape == (2, 9, 8, 8) and out.dtype == torch.float32
+    assert extract_planes_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        extract_planes_cuda(sm2d.to("meta"), 3)
+    with pytest.raises(ValueError, match=r"\[B,S,S\*9\]"):
+        extract_planes_cuda(torch.zeros((2, 8, 8 * 4)), 3)
+    sm = torch.zeros((8, 8, 9))
+    bx = torch.zeros((3, 4))
+    launches = (extract_planes_cuda.launches,
+                assemble_masks_batch_cuda.launches)
+    for use_extract in (False, True):
+        assert assemble_masks_cuda(sm, bx, 3,
+                                   use_extract=use_extract).shape == (3, 8, 8)
+        with pytest.raises(ValueError, match="CUDA device"):
+            assemble_masks_cuda(sm.to("meta"), bx, 3, use_extract=use_extract)
+    assert (extract_planes_cuda.launches,
+            assemble_masks_batch_cuda.launches) == launches
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source():
