@@ -16,14 +16,18 @@ Phases (any failure exits non-zero before the last line is printed):
      with mixed classes, forced score ties and overlapping boxes (and at
      K=1024 and K=100, the shared-memory and ragged-word edges); K3 (the
      assembly backward) bit-exact at S=288 (B=2, R=10, zero-box ROIs),
-     S=576 (R=4) and k=5/7, K1's pixel-box mode bit-exact on the same
-     ROIs, and the training assembly's score-map gradient (K1 forward,
-     K3 backward) within 1e-6 relative of autograd through the plain
-     gather; K4 (channel extraction) bit-exact for bf16 and f32 inputs at
-     S=288 and S=576 (k=3, B=1 and B=2) and S=64 (k=5, k=7); K1 on
-     channel planes bit-exact against K1 on the NHWC map, and
-     ``assemble_masks_cuda`` with ``use_extract`` (K4 then K1) against its
-     default route;
+     S=576 (R=4) and k=5/7, and at the edges of its design: S=97 (rows
+     off the 16-byte grid), k=1, k=16 (shared-memory accumulators), R=1,
+     R=256 (MAX_ROIS), a ROI over the whole map and rows that meet no
+     ROI; K1's pixel-box mode bit-exact on the same ROIs, and the
+     training assembly's score-map gradient (K1 forward, K3 backward)
+     within 1e-6 relative of autograd through the plain gather; K4
+     (channel extraction) bit-exact for bf16 and f32 inputs at S=288 and
+     S=576 (k=3, B=1 and B=2), S=64 (k=5, k=7), S=97, k=1, k=16, B=3 and
+     on input views one element into their storage (off the 16-byte
+     grid); K1 on channel planes bit-exact against K1 on the NHWC map,
+     and ``assemble_masks_cuda`` with ``use_extract`` (K4 then K1)
+     against its default route;
   3. the serving slice: the full-width 576^2 model (Darknet-53, 3 heads,
      stride-2 decoder, bf16 compute, seeded random weights) through
      ``predict`` + ``paste_masks_batch`` at B=1 and B=2, with the
@@ -62,9 +66,13 @@ Phases (any failure exits non-zero before the last line is printed):
      the top kernels; predict and predict+paste ms of each serving graph
      at B=1 and B=2, one profiler window each of (b) and (d) at B=1, K4
      beside its bound and its one-call library equivalent
-     (``copy_`` of the permuted view) for bf16 and f32 maps, K1 in the
-     planes layout, and the device memory a B=2 predict+paste of (d) and
-     of (b) takes.
+     (``copy_`` of the permuted view) for bf16 and f32 maps, the
+     yardsticks of a one-element graph node and of a zero fill of K3's
+     output, K1 in the planes layout, and the device memory a B=2
+     predict+paste of (d) and of (b) takes.
+
+Phase 1 prints, and ``--out`` keeps under ``ptxas``, each kernel's
+registers and spill bytes from its ``nvcc -Xptxas -v`` log.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -83,6 +91,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -189,6 +198,31 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+def ptxas_usage(log: str) -> dict:
+    """Registers, stack frame and spill bytes and static shared memory per
+    kernel entry (mangled name) from an ``nvcc -Xptxas -v`` log."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                usage[fn].update(stack_frame=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                usage[fn]["static_smem_bytes"] = int(m.group(1))
+    return usage
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -247,27 +281,46 @@ def random_px_boxes(torch, gen, b, r, s, n_zero):
     return boxes
 
 
+def edited_px_boxes(torch, gen, b, r, s, edit):
+    """``random_px_boxes`` with no zero boxes, edited: "upright" undoes the
+    first ROI's inversion, "full" makes ROI 1 the whole map, "top" keeps
+    every ROI in the top half of the rows (the rows below meet no ROI)."""
+    boxes = random_px_boxes(torch, gen, b, r, s, 0)
+    if edit == "upright":
+        boxes[:, 0] = boxes[:, 0, [2, 1, 0, 3]]
+    elif edit == "full":
+        boxes[:, 1] = torch.tensor([0.0, 0.0, s, s])
+    elif edit == "top":
+        boxes[..., 0::2] = torch.floor(boxes[..., 0::2] / 2)
+    return boxes
+
+
 def check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen, b, s, k, r,
-                       n_zero, check_grad):
+                       n_zero, check_grad, edit=None):
     """K3 bit-exact against its plain version, K1's pixel-box mode
     bit-exact, and (``check_grad``) the training assembly's score-map
-    gradient against autograd through the plain gather.  Returns K3's
-    max |diff| and the gradient's error relative to max |ref|."""
-    boxes = random_px_boxes(torch, gen, b, r, s, n_zero).cuda()
+    gradient against autograd through the plain gather.  The ROIs are
+    ``random_px_boxes`` or, with ``edit``, ``edited_px_boxes``.  Returns
+    K3's max |diff| and the gradient's error relative to max |ref|."""
+    boxes = (random_px_boxes(torch, gen, b, r, s, n_zero) if edit is None
+             else edited_px_boxes(torch, gen, b, r, s, edit)).cuda()
     g = torch.randn((b, r, s, s), generator=gen).cuda()
     got = cuda_assembly.assemble_bwd_cuda(boxes, g, k)
     want = mask_assembly.assemble_bwd_plain(boxes, g, k)
     torch.cuda.synchronize()
-    need(torch.equal(got, want), f"K3 not bit-exact (S={s} k={k} R={r})")
+    tag = f"S={s} k={k} R={r}" + (f" {edit}" if edit else "")
+    need(torch.equal(got, want), f"K3 not bit-exact ({tag})")
     need(torch.equal(want.cpu(), mask_assembly.assemble_bwd_plain(
-        boxes.cpu(), g.cpu(), k)), f"K3 plain differs card vs CPU (S={s} k={k})")
-    need(bool(got.any()), "K3 case has no pixel inside a ROI")
+        boxes.cpu(), g.cpu(), k)), f"K3 plain differs card vs CPU ({tag})")
+    need(bool(got.any()), f"K3 case has no pixel inside a ROI ({tag})")
+    if edit == "top":
+        need(not bool(got[:, s // 2:].any()), f"K3 rows below every ROI not zero ({tag})")
     sm = torch.randn((b, s, s, k * k), generator=gen).cuda()
     fwd = cuda_assembly.assemble_masks_batch_cuda(sm, boxes, k, apply_sigmoid=False,
                                                   pixel_boxes=True)
     need(torch.equal(fwd, cuda_assembly.assemble_masks_batch_plain(
         sm, boxes, k, apply_sigmoid=False, pixel_boxes=True)),
-        f"K1 pixel-box logits not bit-exact (S={s} k={k})")
+        f"K1 pixel-box logits not bit-exact ({tag})")
     rel = 0.0
     if check_grad:
         sm_k = sm.clone().requires_grad_(True)
@@ -279,20 +332,26 @@ def check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen, b, s, k, r,
         # the gather's backward scatters into an expanded [B,R,S,S,k^2]
         # tensor and sums over R in its own order; K3 adds in ROI order
         need(rel <= 1e-6, f"training assembly grad vs plain gather: rel err {rel}")
-    print(f"K3 S={s} B={b} R={r} k={k}: bit-exact; K1 pixel-box bit-exact"
+    print(f"K3 B={b} {tag}: bit-exact; K1 pixel-box bit-exact"
           + (f"; grad vs plain gather rel err {rel:.3g}" if check_grad else ""),
           flush=True)
     return float((got - want).abs().max()), rel
 
 
-def check_extract(torch, cuda_assembly, gen, b, s, k, dtype):
+def check_extract(torch, cuda_assembly, gen, b, s, k, dtype, offset=0):
     """K4 bit-exact against its plain version on the card, and the plain
-    version on the card against the CPU's."""
-    sm2d = torch.randn((b, s, s * k * k), generator=gen).to(dtype).cuda()
+    version on the card against the CPU's.  ``offset``: the input is a
+    contiguous view that many elements into its storage (a pointer off the
+    16-byte grid)."""
+    n = b * s * s * k * k
+    base = torch.randn((n + offset,), generator=gen).to(dtype).cuda()
+    sm2d = base[offset:].view(b, s, s * k * k)
+    tag = f"S={s} k={k} B={b} {str(dtype)[6:]}" + (f" offset {offset}" if offset else "")
+    need(sm2d.is_contiguous() and (sm2d.data_ptr() % 16 != 0) == (offset > 0),
+         f"K4 case input alignment ({tag})")
     got = cuda_assembly.extract_planes_cuda(sm2d, k)
     want = cuda_assembly.extract_planes_plain(sm2d, k)
     torch.cuda.synchronize()
-    tag = f"S={s} k={k} B={b} {str(dtype)[6:]}"
     need(got.dtype == torch.float32 and torch.equal(got, want),
          f"K4 not bit-exact ({tag})")
     need(torch.equal(want.cpu(), cuda_assembly.extract_planes_plain(
@@ -473,12 +532,12 @@ def main() -> None:
     t0 = time.time()
     libs = _build.build()
     print(f"built {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
+    ptxas = {}
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        if log.exists():
-            info = [ln.strip() for ln in log.read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
-            print(f"  {name}: " + " | ".join(info[-2:]), flush=True)
+        ptxas[name] = ptxas_usage(log.read_text()) if log.exists() else {}
+        for fn, use in ptxas[name].items():
+            print(f"  {name}: {fn}: {json.dumps(use)}", flush=True)
 
     # ---- phase 2: kernels against their plain versions ----------------
     gen = torch.Generator().manual_seed(0)
@@ -510,17 +569,31 @@ def main() -> None:
           f"{kept_second}/17 second boxes kept", flush=True)
 
     k3_cases = [check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen,
-                                   b, s, k, r, n_zero, check_grad)
-                for b, s, k, r, n_zero, check_grad in (
-                    (2, 288, 3, 10, 2, True), (1, 576, 3, 4, 1, True),
-                    (1, 288, 5, 10, 2, False), (1, 288, 7, 10, 2, False))]
+                                   b, s, k, r, n_zero, check_grad, edit)
+                for b, s, k, r, n_zero, check_grad, edit in (
+                    (2, 288, 3, 10, 2, True, None), (1, 576, 3, 4, 1, True, None),
+                    (1, 288, 5, 10, 2, False, None), (1, 288, 7, 10, 2, False, None),
+                    # the edges of the row-per-block design: a row length
+                    # and band start off the 16-byte grid (S=97), k=1, the
+                    # shared-memory accumulators (k=16), one ROI, MAX_ROIS,
+                    # a ROI over the whole map, rows that meet no ROI
+                    (2, 97, 3, 10, 2, False, None), (2, 64, 1, 10, 2, False, None),
+                    (1, 32, 16, 10, 2, False, None), (2, 64, 3, 1, 0, False, "upright"),
+                    (1, 48, 3, cuda_assembly.MAX_ROIS, 16, False, None),
+                    (2, 97, 3, 10, 0, False, "full"), (2, 64, 3, 10, 0, False, "top"))]
     k3_err = max(e for e, _ in k3_cases)
     grad_rel = max(r for _, r in k3_cases)
 
-    k4_err = max(check_extract(torch, cuda_assembly, gen, b, s, k, dtype)
+    k4_err = max(check_extract(torch, cuda_assembly, gen, b, s, k, dtype, offset)
                  for dtype in (torch.bfloat16, torch.float32)
-                 for b, s, k in ((1, 288, 3), (2, 288, 3), (1, 576, 3),
-                                 (2, 576, 3), (2, 64, 5), (1, 64, 7)))
+                 for b, s, k, offset in (
+                     (1, 288, 3, 0), (2, 288, 3, 0), (1, 576, 3, 0),
+                     (2, 576, 3, 0), (2, 64, 5, 0), (1, 64, 7, 0),
+                     # rows off the 16-byte grid (S=97), k=1, k=16 (k*k =
+                     # 256, column tiles), B=3, an input view one element
+                     # into its storage
+                     (1, 97, 3, 0), (2, 64, 1, 0), (1, 97, 16, 0), (3, 64, 3, 0),
+                     (1, 288, 3, 1), (2, 97, 5, 1)))
     for b, s, k in ((2, 288, 3), (1, 576, 3), (1, 64, 5), (1, 64, 7)):
         check_planes(torch, cuda_assembly, gen, b, s, k, 30, 3)
     print(f"phase 2 done at {time.time() - t_start:.0f} s", flush=True)
@@ -905,6 +978,15 @@ def main() -> None:
     k3_inside = float(mask_assembly.box_inside_mask(roi_px, s3).sum())
     k3_bound = bound(k3_inside * 4 + roi_px.numel() * 4
                      + g_rois.shape[0] * s3 * s3 * k3_k * k3_k * 4, k3_inside)
+    # yardsticks for the small kernels: one graph node of a 1-element
+    # kernel (the launch), and a zero fill of K3's output (its stores)
+    one = torch.zeros(1, device="cuda")
+    per_call["one_element_node_device"] = graph_ms(torch, lambda: one.add_(1))
+    k3_zeros = torch.empty((g_rois.shape[0], s3, s3, k3_k * k3_k), device="cuda")
+    per_call["K3_output_zero_fill_device"] = graph_ms(torch, k3_zeros.zero_)
+    print(f"one-element graph node {per_call['one_element_node_device'] * 1e3:.2f} us; "
+          f"zero fill of K3's output {per_call['K3_output_zero_fill_device'] * 1e3:.2f} us",
+          flush=True)
     print(f"K3 B={g_rois.shape[0]} R={g_rois.shape[1]} S={s3}: {k3_ms * 1e3:.1f} us "
           f"(plain {k3_plain * 1e3:.1f} us, bound {k3_bound[0] * 1e3:.2f} us by "
           f"{k3_bound[1]}); K1 pixel-box R={k1t_args[1].shape[1]}: "
@@ -1043,6 +1125,7 @@ def main() -> None:
                               for t, v in k4.items()},
                        "serving_graph_memory_b2": memory,
                        "int8_calibration_absmax": absmax,
+                       "ptxas": ptxas,
                        "seconds": time.time() - t_start,
                        "kernels": kernels},
                       f, indent=1)

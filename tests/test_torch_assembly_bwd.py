@@ -49,26 +49,45 @@ def px_boxes(rng, b, r, s, n_zero):
     return boxes.astype(np.float32)
 
 
-def case(seed, b, r, s, k, n_zero=2):
+def case(seed, b, r, s, k, layout="random", n_zero=2):
+    """Score maps, ROIs and upstream gradient.  ``layout``: "random" is
+    ``px_boxes``; "upright" has no zero box and un-inverts the first ROI;
+    "full" has no zero box and makes ROI 1 the whole map."""
     rng = np.random.RandomState(seed)
     sm = rng.randn(b, s, s, k * k).astype(np.float32)
-    boxes = px_boxes(rng, b, r, s, n_zero)
+    boxes = px_boxes(rng, b, r, s, n_zero if layout == "random" else 0)
+    if layout == "upright":
+        boxes[:, 0] = boxes[:, 0, [2, 1, 0, 3]]
+    elif layout == "full":
+        boxes[:, 1] = [0.0, 0.0, s, s]
     g = rng.randn(b, r, s, s).astype(np.float32)
     return sm, boxes, g
 
 
-CASES = [(31, 2, 10, 64, 3), (32, 2, 10, 64, 5), (33, 1, 10, 64, 7),
+def param(seed, b, r, s, k, layout="random"):
+    """One case, named by its numbers (and its layout unless random)."""
+    name = "-".join(map(str, (seed, b, r, s, k)))
+    return pytest.param(seed, b, r, s, k, layout,
+                        id=name if layout == "random" else f"{name}-{layout}")
+
+
+CASES = [param(31, 2, 10, 64, 3), param(32, 2, 10, 64, 5),
+         param(33, 1, 10, 64, 7),
          # S=576: the Pallas backward takes its row-tiled layout
-         (34, 1, 4, 576, 3)]
+         param(34, 1, 4, 576, 3),
+         # the edges of kernel K3's design: a row length off the 16-byte
+         # grid (S=37), k=1, a single ROI, a ROI over the whole map
+         param(36, 2, 10, 37, 3), param(37, 2, 10, 32, 1),
+         param(38, 2, 1, 32, 3, "upright"), param(39, 1, 10, 40, 3, "full")]
 
 
-@pytest.mark.parametrize("seed,b,r,s,k", CASES)
-def test_bwd_plain_bit_exact_vs_pallas(seed, b, r, s, k):
+@pytest.mark.parametrize("seed,b,r,s,k,layout", CASES)
+def test_bwd_plain_bit_exact_vs_pallas(seed, b, r, s, k, layout):
     """assemble_bwd_plain == _assembly_bwd(interpret=True), transposed
     back to [S,S,k*k], image by image."""
-    sm, boxes, g = case(seed, b, r, s, k)
+    sm, boxes, g = case(seed, b, r, s, k, layout)
     got = assemble_bwd_plain(T(boxes), T(g), k).numpy()
-    assert got.shape == (b, s, s, k * k)
+    assert got.shape == (b, s, s, k * k) and got.any()
     for i in range(b):
         want = _assembly_bwd((k * k, s, s), jnp.asarray(boxes[i]),
                              jnp.asarray(g[i]), k, interpret=True)
@@ -79,12 +98,12 @@ def test_bwd_plain_bit_exact_vs_pallas(seed, b, r, s, k):
         assemble_bwd_cuda(T(boxes), T(g), k).numpy(), got)
 
 
-@pytest.mark.parametrize("seed,b,r,s,k", CASES[:3])
-def test_trainable_forward_and_grad_bit_exact(seed, b, r, s, k):
+@pytest.mark.parametrize("seed,b,r,s,k,layout", CASES[:3])
+def test_trainable_forward_and_grad_bit_exact(seed, b, r, s, k, layout):
     """The port's autograd.Function against the JAX custom VJP (Pallas in
     interpret mode): logits, and the score-map gradient of sum(logits*w),
     bit for bit; the boxes' gradient is zero."""
-    sm, boxes, g = case(seed, b, r, s, k)
+    sm, boxes, g = case(seed, b, r, s, k, layout)
     sm_t = T(sm).requires_grad_(True)
     boxes_t = T(boxes).requires_grad_(True)
     logits = assemble_masks_trainable(sm_t, boxes_t, k)

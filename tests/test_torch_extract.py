@@ -59,7 +59,8 @@ def case(rng=np.random.RandomState(7)):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s,k", [(64, 3), (40, 5), (24, 7)])
+# S=37: rows off the 16-byte grid for kernel K4; k=1: one plane
+@pytest.mark.parametrize("s,k", [(64, 3), (40, 5), (24, 7), (37, 3), (16, 1)])
 def test_extract_plain_matches_pallas(s, k, dtype):
     """extract_planes_plain == _extract_planes(interpret=True) bit for bit,
     one image and a batch of two; the wrapper on CPU tensors launches
@@ -77,6 +78,22 @@ def test_extract_plain_matches_pallas(s, k, dtype):
     np.testing.assert_array_equal(got.numpy(), np.stack(want))
     np.testing.assert_array_equal(extract_planes_plain(sm2d[:1], k).numpy(),
                                   want[0][None])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extract_plain_on_offset_view(dtype):
+    """extract_planes_plain, and the wrapper's CPU route, on a contiguous
+    view one element into its storage (for kernel K4 a pointer off the
+    16-byte grid) equal it on the same values unshifted."""
+    rng = np.random.RandomState(11)
+    s, k = 37, 3
+    flat = to_torch(np.stack([scoremap(rng, s, k, dtype)
+                              for _ in range(2)]).reshape(-1))
+    view = torch.cat([flat[:1], flat])[1:].view(2, s, s * k * k)
+    assert view.storage_offset() == 1 and view.is_contiguous()
+    want = extract_planes_plain(flat.view(2, s, s * k * k), k).numpy()
+    np.testing.assert_array_equal(extract_planes_plain(view, k).numpy(), want)
+    np.testing.assert_array_equal(extract_planes_cuda(view, k).numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
