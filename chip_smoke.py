@@ -12,9 +12,16 @@ Phases (any failure exits non-zero before the last line is printed):
   2. each kernel against its plain PyTorch version, on the card, at the
      main paths' shapes: K1 (mask assembly) logits bit-exact and sigmoid
      within 1e-6 inside the box, exact 0 outside, at S=288 (B=2, D=30,
-     padding rows), S=576 and k=5/7; K2 (NMS) index-exact at K=512, B=2,
-     with mixed classes, forced score ties and overlapping boxes (and at
-     K=1024 and K=100, the shared-memory and ragged-word edges); K3 (the
+     padding rows), S=576 and k=5/7, and in all three modes (normalized
+     boxes, pixel boxes, channel planes) and every swept launch shape at
+     odd S=145 (k=3/5/7), S=576 and S=288 with boxes on the map's edges
+     (x2 = S), 1-pixel, inverted and zero boxes; K2 (NMS) index-exact, by
+     its default route and with the general route forced, at K=512, B=2,
+     with mixed classes, forced score ties and overlapping boxes, at
+     K=1024 and K=100, at K=1/31/33/1024 with B=3, on a knife edge of
+     IoU within ulps of the threshold, with max_det above the valid
+     count and max_det=1, on shuffled scores, with valid -inf scores, and
+     with a valid NaN (nothing kept) and an invalid one (ignored); K3 (the
      assembly backward) bit-exact at S=288 (B=2, R=10, zero-box ROIs),
      S=576 (R=4) and k=5/7, and at the edges of its design: S=97 (rows
      off the 16-byte grid), k=1, k=16 (shared-memory accumulators), R=1,
@@ -69,10 +76,18 @@ Phases (any failure exits non-zero before the last line is printed):
      (``copy_`` of the permuted view) for bf16 and f32 maps, the
      yardsticks of a one-element graph node and of a zero fill of K3's
      output, K1 in the planes layout, and the device memory a B=2
-     predict+paste of (d) and of (b) takes.
+     predict+paste of (d) and of (b) takes; K2 with one round (its launch,
+     loads and prologue) and the cost of each further round, by both
+     routes; K1 in its three modes beside their bounds and a zero fill of
+     its output, and each mode's launch shapes.
 
 Phase 1 prints, and ``--out`` keeps under ``ptxas``, each kernel's
-registers and spill bytes from its ``nvcc -Xptxas -v`` log.
+registers and spill bytes from its ``nvcc -Xptxas -v`` log; the run fails
+at its end if K1 or K2 has a stack frame or spills.  K2's forced general
+route and K1's launch shapes go through the C entry points
+``dis_nms_config`` and ``dis_assemble_masks_config``, which count no
+launch; ``--out`` keeps the sweeps under ``k2_sweep`` and
+``k1_modes_and_sweep``.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -88,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -496,6 +512,135 @@ def nms_knife_edge(torch, np):
             torch.ones((1, k), dtype=torch.bool).cuda()]
 
 
+# what phase 2 checks and phase 4 sweeps through the kernels' config entry
+# points: K2 with its sorted route allowed or the general route forced;
+# K1's launch shape, threads per block and rows per thread
+K2_ROUTES = (0, 1)
+K1_CONFIGS = [(threads, rows) for threads in (128, 256, 512, 1024)
+              for rows in (1, 2, 4)]
+
+
+def config_entries(_build):
+    """The kernels' C entry points that take a launch shape:
+    ``dis_nms_config`` and ``dis_assemble_masks_config``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entries = {}
+    for name, symbol, argtypes in (
+            ("nms", "dis_nms_config", [p, p, p, p, p, i, i, i, f, i, p]),
+            ("assembly", "dis_assemble_masks_config",
+             [p, p, p, i, i, i, i, i, i, i, i, i, p])):
+        fn = getattr(ctypes.CDLL(str(_build.build([name])[name])), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def nms_config(torch, fn, case, max_det, thr, general):
+    """K2 through ``dis_nms_config``, the general route forced if
+    ``general`` (no launch counted)."""
+    boxes, scores, classes, valid = case
+    out = torch.empty((scores.shape[0], max_det), dtype=torch.int64, device="cuda")
+    err = fn(boxes.data_ptr(), scores.data_ptr(), classes.data_ptr(),
+             valid.data_ptr(), out.data_ptr(), scores.shape[0], scores.shape[1],
+             max_det, thr, general, torch.cuda.current_stream().cuda_stream)
+    need(err == 0, f"dis_nms_config(general={general}): CUDA error {err}")
+    return out
+
+
+def assembly_config(torch, fn, sm, boxes, k, launch, apply_sigmoid=True,
+                    pixel_boxes=False, planes=False):
+    """K1 through ``dis_assemble_masks_config`` with ``launch`` = (threads,
+    rows per thread) (no launch counted)."""
+    s = sm.shape[2]
+    out = torch.empty((sm.shape[0], boxes.shape[1], s, s), device="cuda")
+    err = fn(sm.data_ptr(), boxes.data_ptr(), out.data_ptr(), sm.shape[0],
+             boxes.shape[1], s, k, int(apply_sigmoid), int(pixel_boxes),
+             int(planes), *launch, torch.cuda.current_stream().cuda_stream)
+    need(err == 0, f"dis_assemble_masks_config{launch}: CUDA error {err}")
+    return out
+
+
+def check_nms(torch, nms, cuda_nms, nms_fn, case, max_det, tag, min_kept=0,
+              none_in=()):
+    """K2 index-exact against its plain version on the card and on the CPU,
+    by its default route and with the general route forced; images
+    ``none_in`` must keep nothing.  Returns the picks and their max |diff|
+    from the plain version's."""
+    got = cuda_nms.nms_cuda(*case, max_det, 0.3)
+    want = nms._select_suppress_nms(*case, 0.3, max_det)
+    want_cpu = nms._select_suppress_nms(*(t.cpu() for t in case), 0.3, max_det)
+    torch.cuda.synchronize()
+    need(torch.equal(got, want), f"K2 {tag} not index-exact:\n{got}\n{want}")
+    need(torch.equal(want.cpu(), want_cpu), f"K2 {tag}: plain differs card vs CPU")
+    for general in K2_ROUTES:
+        need(torch.equal(nms_config(torch, nms_fn, case, max_det, 0.3, general), want),
+             f"K2 {tag} not index-exact with general={general}")
+    kept = int((got >= 0).sum())
+    need(kept >= min_kept, f"K2 {tag} kept too few boxes: {kept}")
+    for i in none_in:
+        need(bool((got[i] == -1).all()), f"K2 {tag}: image {i} kept {got[i]}")
+    print(f"K2 {tag}: index-exact by both routes, {kept} kept", flush=True)
+    return got, float((got - want).abs().max())
+
+
+def edge_boxes(torch, gen, b, d, s):
+    """``random_boxes`` with, in every image, the whole map, a box touching
+    the bottom and right edges (y2 = x2 = S), two 1-pixel boxes (one the
+    last pixel), an inverted box, a box past the map's edges, and three
+    zero (padding) rows."""
+    boxes = random_boxes(torch, gen, b, d, 3)
+    r, c = (int(v) for v in torch.randint(0, s, (2,), generator=gen))
+    boxes[:, 4:10] = torch.tensor(
+        [[0, 0, 1, 1], [0.5, 0.25, 1, 1], [r / s, c / s, (r + 1) / s, (c + 1) / s],
+         [(s - 1) / s, (s - 1) / s, 1, 1], [0.7, 0.2, 0.2, 0.9],
+         [-0.1, 0.3, 0.4, 1.2]])
+    return boxes
+
+
+def check_assembly_edges(torch, cuda_assembly, asm_fn, gen, b, s, k, d):
+    """K1 in all three modes on ``edge_boxes``: normalized boxes on the
+    NHWC map (logits bit-exact, sigmoid within 1e-6, in the default launch
+    and in every swept shape), pixel boxes (the training forward) and
+    channel planes (K4's layout) with either kind of box, all bit-exact
+    against the plain version; the plain version on the card against the
+    CPU's."""
+    sm = torch.randn((b, s, s, k * k), generator=gen).cuda()
+    bx = edge_boxes(torch, gen, b, d, s).cuda()
+    px = torch.round(bx * s)
+    planes = sm.permute(0, 3, 1, 2).contiguous()
+    tag = f"S={s} B={b} D={d} k={k} edge boxes"
+    want = cuda_assembly.assemble_masks_batch_plain(sm, bx, k, apply_sigmoid=False)
+    need(torch.equal(want.cpu(), cuda_assembly.assemble_masks_batch_plain(
+        sm.cpu(), bx.cpu(), k, apply_sigmoid=False)),
+        f"K1 plain logits differ between card and CPU ({tag})")
+    need(bool(want[:, 4].all()) and not bool(want[:, 8].any())
+         and not bool(want[:, d - 3:].any()), f"K1 edge case not as built ({tag})")
+    for name, got in (
+            ("logits", cuda_assembly.assemble_masks_batch_cuda(sm, bx, k, False)),
+            *((f"logits, launch {launch}", assembly_config(torch, asm_fn, sm, bx, k,
+                                                           launch, False))
+              for launch in K1_CONFIGS),
+            ("planes logits", cuda_assembly.assemble_masks_batch_cuda(
+                planes, bx, k, False, planes=True))):
+        need(torch.equal(got, want), f"K1 {name} not bit-exact ({tag})")
+    want_px = cuda_assembly.assemble_masks_batch_plain(sm, px, k, False, pixel_boxes=True)
+    for name, got in (
+            ("pixel-box logits", cuda_assembly.assemble_masks_batch_cuda(
+                sm, px, k, False, pixel_boxes=True)),
+            ("planes pixel-box logits", cuda_assembly.assemble_masks_batch_cuda(
+                planes, px, k, False, pixel_boxes=True, planes=True))):
+        need(torch.equal(got, want_px), f"K1 {name} not bit-exact ({tag})")
+    got = cuda_assembly.assemble_masks_batch_cuda(sm, bx, k)
+    probs = cuda_assembly.assemble_masks_batch_plain(sm, bx, k)
+    torch.cuda.synchronize()
+    need(torch.equal(got != 0, probs != 0), f"K1 support differs ({tag})")
+    err = float((got - probs).abs().max())
+    need(err <= 1e-6, f"K1 sigmoid error {err} > 1e-6 ({tag})")
+    print(f"K1 {tag}: logits bit-exact in all three modes and every launch "
+          f"shape, sigmoid max err {err:.3g}", flush=True)
+    return err
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -538,35 +683,59 @@ def main() -> None:
         ptxas[name] = ptxas_usage(log.read_text()) if log.exists() else {}
         for fn, use in ptxas[name].items():
             print(f"  {name}: {fn}: {json.dumps(use)}", flush=True)
+    entries = config_entries(_build)
 
     # ---- phase 2: kernels against their plain versions ----------------
     gen = torch.Generator().manual_seed(0)
     k1_err = max(check_assembly(torch, cuda_assembly, gen, 2, 288, 3, 30, 5),
                  check_assembly(torch, cuda_assembly, gen, 1, 576, 3, 30, 3),
                  check_assembly(torch, cuda_assembly, gen, 1, 288, 5, 30, 3),
-                 check_assembly(torch, cuda_assembly, gen, 1, 288, 7, 30, 3))
-    k2_err = 0.0
-    for b, kk in ((2, 512), (1, 1024), (1, 100)):   # 1024: >48 KB shared
-        case = nms_case(torch, gen, b, kk)
-        got = cuda_nms.nms_cuda(*case, 30, 0.3)
-        want = nms._select_suppress_nms(*case, 0.3, 30)
-        want_cpu = nms._select_suppress_nms(*(t.cpu() for t in case), 0.3, 30)
-        torch.cuda.synchronize()
-        need(torch.equal(got, want), f"K2 K={kk} not index-exact:\n{got}\n{want}")
-        need(torch.equal(want.cpu(), want_cpu), f"K2 K={kk} plain differs card vs CPU")
-        need(bool((got >= 0).sum() >= 10 * b), f"K2 K={kk} kept too few boxes")
-        k2_err = max(k2_err, float((got - want).abs().max()))
-        print(f"K2 K={kk} B={b}: index-exact, {int((got >= 0).sum())} kept",
-              flush=True)
-
+                 check_assembly(torch, cuda_assembly, gen, 1, 288, 7, 30, 3),
+                 # odd S (rows off the 16-byte grid), S=576, k=5/7, boxes
+                 # on the map's edges, 1-pixel, inverted and zero boxes
+                 *(check_assembly_edges(torch, cuda_assembly, entries["assembly"],
+                                        gen, b, s, k, 30)
+                   for b, s, k in ((2, 145, 3), (1, 145, 5), (1, 145, 7),
+                                   (1, 576, 3), (2, 288, 3))))
+    k2_errs = [check_nms(torch, nms, cuda_nms, entries["nms"],
+                         nms_case(torch, gen, b, kk), 30, f"K={kk} B={b}", kept)[1]
+               for b, kk, kept in ((2, 512, 20), (1, 1024, 10), (1, 100, 10),
+                                   # one warp, a ragged warp, one candidate,
+                                   # the limit
+                                   (3, 1, 0), (3, 31, 3), (3, 33, 3), (3, 1024, 30))]
     case = nms_knife_edge(torch, np)
-    got = cuda_nms.nms_cuda(*case, 34, 0.3)
-    want = nms._select_suppress_nms(*case, 0.3, 34)
+    got, err = check_nms(torch, nms, cuda_nms, entries["nms"], case, 34, "knife edge")
+    k2_errs.append(err)
     kept_second = int(((got >= 0) & (got % 2 == 1)).sum())
-    need(torch.equal(got, want), f"K2 knife edge not index-exact:\n{got}\n{want}")
     need(0 < kept_second < 17, f"K2 knife edge not straddled: {kept_second}/17")
-    print(f"K2 knife edge (IoU within 8 ulp of 0.3): index-exact, "
-          f"{kept_second}/17 second boxes kept", flush=True)
+    print(f"K2 knife edge (IoU within 8 ulp of 0.3): {kept_second}/17 second "
+          f"boxes kept", flush=True)
+    # more rounds than valid candidates; a single round
+    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"],
+                             nms_case(torch, gen, 2, 64), 100, "K=64 B=2 max_det=100",
+                             2)[1])
+    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"],
+                             nms_case(torch, gen, 2, 512), 1, "K=512 B=2 max_det=1",
+                             2)[1])
+    # scores in no order (the general route)
+    case = nms_case(torch, gen, 2, 512)
+    perm = torch.randperm(512, generator=gen).cuda()
+    case = [t[:, perm].contiguous() for t in case]
+    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"], case, 30,
+                             "K=512 B=2 shuffled", 20)[1])
+    # a valid -inf inside the list (image 0) and last (image 1)
+    case = nms_case(torch, gen, 2, 512)
+    case[1][0, 10], case[1][1, 511] = -float("inf"), -float("inf")
+    case[3][:, 10], case[3][:, 511] = True, True
+    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"], case, 30,
+                             "K=512 B=2 valid -inf", 20)[1])
+    # a valid NaN (image 0: nothing kept) and an invalid NaN (image 1: ignored)
+    case = nms_case(torch, gen, 2, 512)
+    case[1][:, 5] = float("nan")
+    case[3][0, 5], case[3][1, 5] = True, False
+    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"], case, 30,
+                             "K=512 B=2 valid NaN / invalid NaN", 10, none_in=(0,))[1])
+    k2_err = max(k2_errs)
 
     k3_cases = [check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen,
                                    b, s, k, r, n_zero, check_grad, edit)
@@ -934,14 +1103,22 @@ def main() -> None:
                                         (k1, k1_plain_fn, k2, k2_plain_fn))
     per_call = {name: cuda_ms(torch, f, 100) for name, f in
                 (("K1", k1), ("K2", k2))}
-    # K2 with a single selection round: the K x K bitmask build alone
-    per_call["K2_build_only_device"] = graph_ms(
+    # K2 with a single selection round: the launch, the loads and the
+    # prologue; the rest of K2's time is its other max_det - 1 rounds
+    max_det = k2_args[4]
+    per_call["K2_one_round_device"] = graph_ms(
         torch, lambda: cuda_nms.nms_cuda(*k2_args[:4], 1, k2_args[5]))
-    print("kernel ms per call incl. the host's wrapper and launch, and K2's build: "
-          + json.dumps(per_call), flush=True)
-    out_px = bx.shape[0] * bx.shape[1] * sm.shape[1] * sm.shape[2]
-    k1_bound = bound(sm.numel() * 4 + bx.numel() * 4 + out_px * 4,
-                     out_px * (6 + 2 * (k - 1)))
+    per_call["K2_per_round_device"] = ((k2_ms - per_call["K2_one_round_device"])
+                                       / (max_det - 1))
+    print("kernel ms per call incl. the host's wrapper and launch, and K2's one "
+          "round and per round: " + json.dumps(per_call), flush=True)
+
+    def k1_bound_of(scoremaps, boxes, k_):
+        out_px = boxes.shape[0] * boxes.shape[1] * scoremaps.shape[2] ** 2
+        return bound(scoremaps.numel() * 4 + boxes.numel() * 4 + out_px * 4,
+                     out_px * (6 + 2 * (k_ - 1)))
+
+    k1_bound = k1_bound_of(sm, bx, k)
     picked = cuda_nms.nms_cuda(*k2_args, **k2_kw)
     kk = k2_args[1].shape[1]
     # greedy NMS needs one row of pair tests per winner and one argmax
@@ -950,11 +1127,23 @@ def main() -> None:
     rounds = int(torch.clamp((picked >= 0).sum(-1) + 1, max=picked.shape[1]).sum())
     k2_bound = bound(k2_args[1].numel() * (16 + 4 + 4 + 1) + picked.numel() * 8,
                      winners * kk * NMS_OPS_PER_PAIR + rounds * kk * 2)
+    # the sorted route scans warp by warp: how many warps hold a winner
+    k2_shape = {"K": kk, "valid": int(k2_args[3].sum()), "winners": winners,
+                "warps_with_winners": int(torch.unique(picked[picked >= 0] // 32).numel())}
     print(f"K1 S={sm.shape[1]} D={bx.shape[1]}: {k1_ms * 1e3:.1f} us "
           f"(plain {k1_plain * 1e3:.1f} us, bound {k1_bound[0] * 1e3:.2f} us "
           f"by {k1_bound[1]}); K2 K={kk}: {k2_ms * 1e3:.1f} us (plain "
           f"{k2_plain * 1e3:.1f} us, bound {k2_bound[0] * 1e3:.3f} us by "
           f"{k2_bound[1]})", flush=True)
+    # K2's routes on the same inputs, and each with one round
+    k2_case = list(k2_args[:4])
+    k2_sweep = [{"forced_general_route": bool(general),
+                 "ms": graph_ms(torch, lambda: nms_config(
+                     torch, entries["nms"], k2_case, max_det, k2_args[5], general)),
+                 "one_round_ms": graph_ms(torch, lambda: nms_config(
+                     torch, entries["nms"], k2_case, 1, k2_args[5], general))}
+                for general in K2_ROUTES]
+    print("K2 sweep: " + json.dumps(k2_sweep), flush=True)
 
     # K3 (and K1 in pixel-box mode) at the training path's shapes: the
     # arguments of one stage-2 step, recorded after the timed runs
@@ -984,9 +1173,12 @@ def main() -> None:
     per_call["one_element_node_device"] = graph_ms(torch, lambda: one.add_(1))
     k3_zeros = torch.empty((g_rois.shape[0], s3, s3, k3_k * k3_k), device="cuda")
     per_call["K3_output_zero_fill_device"] = graph_ms(torch, k3_zeros.zero_)
+    k1_zeros = torch.empty((bx.shape[0], bx.shape[1], sm.shape[1], sm.shape[2]),
+                           device="cuda")
+    per_call["K1_output_zero_fill_device"] = graph_ms(torch, k1_zeros.zero_)
     print(f"one-element graph node {per_call['one_element_node_device'] * 1e3:.2f} us; "
-          f"zero fill of K3's output {per_call['K3_output_zero_fill_device'] * 1e3:.2f} us",
-          flush=True)
+          f"zero fill of K3's output {per_call['K3_output_zero_fill_device'] * 1e3:.2f} us; "
+          f"of K1's {per_call['K1_output_zero_fill_device'] * 1e3:.2f} us", flush=True)
     print(f"K3 B={g_rois.shape[0]} R={g_rois.shape[1]} S={s3}: {k3_ms * 1e3:.1f} us "
           f"(plain {k3_plain * 1e3:.1f} us, bound {k3_bound[0] * 1e3:.2f} us by "
           f"{k3_bound[1]}); K1 pixel-box R={k1t_args[1].shape[1]}: "
@@ -1042,6 +1234,32 @@ def main() -> None:
     print(f"K1 planes S={sm.shape[1]} D={bx.shape[1]}: "
           f"{per_call['K1_planes_device'] * 1e3:.1f} us (NHWC {k1_ms * 1e3:.1f} us)",
           flush=True)
+    # K1's three modes beside their bounds (by bytes, as the main mode's),
+    # and each mode's launch shapes: the serving path's normalized boxes,
+    # the training forward's pixel boxes, channel planes
+    k1_modes = {
+        "normalized": ((sm, bx, k), {}, k1_ms),
+        "pixel_boxes": (k1t_args, k1t_kw, per_call["K1_train_pixel_boxes_device"]),
+        "planes": ((k1_planes, bx, k), {"planes": True}, per_call["K1_planes_device"])}
+    k1_sweep = {}
+    for mode, (a, kw, ms) in k1_modes.items():
+        b_ms, b_by = k1_bound_of(*a)
+        # the share of output pixels inside their box (exact 0 outside)
+        inside = assembly_config(torch, entries["assembly"], *a, K1_CONFIGS[0], True,
+                                 kw.get("pixel_boxes", False), kw.get("planes", False))
+        k1_sweep[mode] = {
+            "B": a[1].shape[0], "D": a[1].shape[1], "S": a[0].shape[2], "ms": ms,
+            "inside_share": float((inside != 0).float().mean()),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "launch_shapes": [
+                {"threads": launch[0], "rows_per_thread": launch[1],
+                 "ms": graph_ms(torch, lambda: assembly_config(
+                     torch, entries["assembly"], *a, launch, **kw))}
+                for launch in K1_CONFIGS]}
+        best = min(k1_sweep[mode]["launch_shapes"], key=lambda c: c["ms"])
+        print(f"K1 {mode} B={a[1].shape[0]} D={a[1].shape[1]} S={a[0].shape[2]}: "
+              f"{ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us by {b_by}); best "
+              f"launch shape {best}", flush=True)
 
     # device memory of a B=2 predict+paste: int8 (im2col) against deploy
     peak_all_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1126,9 +1344,17 @@ def main() -> None:
                        "serving_graph_memory_b2": memory,
                        "int8_calibration_absmax": absmax,
                        "ptxas": ptxas,
+                       "k1_modes_and_sweep": k1_sweep,
+                       "k2_sweep": k2_sweep, "k2_shape": k2_shape,
                        "seconds": time.time() - t_start,
                        "kernels": kernels},
                       f, indent=1)
+    # checked last, so that a spill still leaves the run's measurements
+    for name in ("nms", "assembly"):
+        need(bool(ptxas[name]) and all(
+            use.get("stack_frame") == 0 and use.get("spill_stores") == 0
+            for use in ptxas[name].values()),
+            f"{name}: ptxas reports a stack frame or spills: {ptxas[name]}")
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.0f} s",
           flush=True)
     print(smi_line)

@@ -16,7 +16,8 @@ from dis_yolo_tpu.ops import decode as jax_decode
 from dis_yolo_tpu.ops import mask_assembly as jax_ma
 from dis_yolo_tpu.ops import nms as jax_nms
 from dis_yolo_tpu.ops import paste as jax_paste
-from dis_yolo_tpu.ops.pallas_assembly import assemble_masks_batch_pallas
+from dis_yolo_tpu.ops.pallas_assembly import (_assembly_px,
+                                              assemble_masks_batch_pallas)
 from dis_yolo_tpu.ops.pallas_nms import nms_pallas
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.ops import boxes, decode, mask_assembly, nms, paste
@@ -300,6 +301,53 @@ def test_assembly_kernel_plain_bit_exact(k, force_tiled):
         assert (probs[i][~inside] == 0).all()
         assert (probs[i][inside] > 0).all()
         assert not probs[i][-2:].any()              # padding rows
+
+
+def _edge_boxes(rng, s, d):
+    """Normalized boxes at the edges of an S-pixel map: the whole map, one
+    touching the bottom and right edges (y2 = x2 = S), two 1-pixel boxes
+    (one the last pixel), an inverted box, one past the map's edges, two
+    zero (padding) rows; the rest random."""
+    bx = sorted_boxes(rng, d)
+    r, c = rng.randint(0, s, 2)
+    bx[:6] = [[0, 0, 1, 1], [0.5, 0.25, 1, 1],
+              [r / s, c / s, (r + 1) / s, (c + 1) / s],
+              [(s - 1) / s, (s - 1) / s, 1, 1],
+              [0.7, 0.2, 0.2, 0.9], [-0.1, 0.3, 0.4, 1.2]]
+    bx[-2:] = 0.0
+    return bx
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_assembly_kernel_plain_edges(k):
+    """K1's plain version at odd S (rows off the 16-byte grid on the card)
+    with boxes on the map's edges: logits bit-exact against
+    assemble_masks_batch_pallas(interpret=True) for normalized boxes and
+    against _assembly_px for pixel boxes; channel planes give the same
+    logits as the NHWC map."""
+    s = 45
+    rng = np.random.RandomState(20 + k)
+    sms = rng.randn(2, s, s, k * k).astype(np.float32)
+    bxs = np.stack([_edge_boxes(rng, s, 10) for _ in range(2)])
+    logits = assemble_masks_batch_cuda(T(sms), T(bxs), k,
+                                       apply_sigmoid=False).numpy()
+    np.testing.assert_array_equal(logits, np.asarray(assemble_masks_batch_pallas(
+        jnp.asarray(sms), jnp.asarray(bxs), k, apply_sigmoid=False,
+        interpret=True)))
+    px = np.round(bxs * s).astype(np.float32)
+    got_px = assemble_masks_batch_cuda(T(sms), T(px), k, apply_sigmoid=False,
+                                       pixel_boxes=True).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(got_px[i], np.asarray(_assembly_px(
+            jnp.transpose(jnp.asarray(sms[i]), (2, 0, 1)), jnp.asarray(px[i]),
+            k, interpret=True)))
+    planes = assemble_masks_batch_cuda(T(sms.transpose(0, 3, 1, 2)), T(bxs), k,
+                                       apply_sigmoid=False, planes=True)
+    np.testing.assert_array_equal(planes.numpy(), logits)
+    assert (logits[:, 0] != 0).all()                # the whole map
+    assert (logits[:, 3, -1, -1] != 0).all() and (logits[:, 3] != 0).sum() == 2
+    assert not logits[:, 4].any() and not logits[:, -2:].any()
+    assert assemble_masks_batch_cuda.launches == 0
 
 
 def test_gather_assembly_matches_jax():
