@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA
-card and check them.
+"""Drive the PyTorch/CUDA port's serving, training and evaluation paths on
+one CUDA card and check them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -63,8 +63,27 @@ Phases (any failure exits non-zero before the last line is printed):
      and the same keep set, (d) against (b) within a normalized MAE of
      0.25 per output, and two int8 layers' int32 accumulators on the
      card equal to the CPU's;
+     the evaluation path: a split of 7 seeded random images, 720x960 and
+     960x720 with names interleaved (two tail batches at B=2),
+     letterboxed by ``data.val_data.letterbox_image``; the seed-7 model
+     with a threshold calibrated on it (``obj_threshold``), with and
+     without ``use_pallas_nms``; ground truth from the host route's
+     sweep (every second pasted detection, plus a rasterized triangle per
+     image that nothing matches); ``eval.sweep.run_split``'s host,
+     ``device_paste`` and ``device_score`` routes (with and without
+     ``gt_semantic``) scored by ``Evaluator``: the same AP, mAP, recall
+     and precision on every route and with K2, 0 < AP < 1 for a class,
+     each ``device_score`` IoU row bit-equal to the host popcount over
+     ``device_paste``'s fetched masks, the confusion totals equal to the
+     host bincount over its fetched semantic maps, and a second
+     ``device_score`` sweep on the same cache uploading nothing again and
+     giving the same rows;
   4. timing with CUDA events: forward, predict and predict+paste ms at
-     576^2 B=1 and B=2, and train-step ms at B=2 for both stages; each
+     576^2 B=1 and B=2, and train-step ms at B=2 for both stages (stage 1
+     also without the locked layers' gradients, with a profiler window of
+     each for their device time); the eval sweep's s/image per route,
+     device predict (the copies to the host included) and host post, the
+     median of 3 sweeps after a warm one (``--out`` key ``eval_sweep``); each
      kernel and its plain version on the main paths' captured inputs, as
      device time per call from CUDA-graph replays (hot L2: the inputs
      were just written, as on the main path), beside its bound; one
@@ -92,7 +111,8 @@ launch; ``--out`` keeps the sweeps under ``k2_sweep`` and
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
 Each kernel's ``launches`` is the sum over the serving path, the
-training path and the serving graphs' path, and ``launches_by_path``
+training path, the serving graphs' path and the eval path, and
+``launches_by_path``
 holds each path's own count (each read from its run, with the counters
 set to 0 just before it).  Only K4 has a single PyTorch call computing
 the same function (``torch.empty(k*k,S,S).copy_(sm.permute(2,0,1))``);
@@ -111,6 +131,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 # published peaks of one H100 SXM (NVIDIA data sheet), at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -471,6 +492,236 @@ def profile_window(torch, fn, calls, wall_ms):
 def state_moved(before, after, keys):
     """Keys (params and BN statistics) whose tensors changed."""
     return {k for k in keys if not before[k].equal(after[k])}
+
+
+# the eval split: 7 images, landscape and portrait (h, w), names
+# interleaved; at B=2 each size group ends in a tail batch
+EVAL_SIZES = ((720, 960), (960, 720))
+EVAL_GROUPS = (0, 1, 0, 0, 1, 1, 0)
+EVAL_ROUTES = {"host": {}, "device_paste": {"device_paste": True},
+               "device_score": {"device_score": True},
+               "device_score_semantic": {"device_score": True}}
+
+
+def eval_split(np, letterbox_image, size, sizes=EVAL_SIZES, seed=0):
+    """The eval split, made with numpy from a seed and letterboxed with the
+    port's ``letterbox_image``: (images, names, windows, original sizes)."""
+    rng = np.random.RandomState(seed)
+    names, orig, images, windows = [], {}, [], []
+    for i, g in enumerate(EVAL_GROUPS):
+        h, w = sizes[g]
+        canvas, window = letterbox_image(
+            rng.randint(0, 256, (h, w, 3)).astype(np.uint8), size)
+        names.append(f"{'lp'[g]}{i}")
+        orig[names[-1]] = (h, w)
+        images.append(canvas)
+        windows.append(window)
+    return np.stack(images), names, np.stack(windows), orig
+
+
+def eval_ground_truth(np, ev, host, sizes, instances, instance_mask):
+    """Ground truth from the host route's sweep ``host``: every second
+    pasted detection (``instances(entry, h, w)``) as an instance of its
+    class, and per image one triangle in a corner, rasterized, that no
+    detection matches.  Sets ``ev``'s index, sizes, masks and semantic
+    maps as ``Evaluator`` builds them."""
+    ev.index = [d["imname"] for d in host]
+    ev.gt_sizes = dict(sizes)
+    ev.gt_masks, ev.gt_semantic = {}, {}
+    for det in host:
+        nm = det["imname"]
+        h, w = sizes[nm]
+        objs = [{"imageid": nm, "classid": i["classid"], "difficult": 0,
+                 "mask": i["mask"]}
+                for i in instances(det, h, w)[::2] if i["mask"].any()]
+        poly = [{"type": "out", "all_points_x": [2, w // 12, 2],
+                 "all_points_y": [h - 3, h - 3, h - h // 12]}]
+        objs.append({"imageid": nm, "classid": 2, "difficult": 0,
+                     "mask": instance_mask(poly, h, w)})
+        sem = np.zeros((h, w), np.uint8)
+        for o in objs:
+            sem[o["mask"]] = o["classid"] + 1
+        ev.gt_masks[nm], ev.gt_semantic[nm] = objs, sem
+
+
+def eval_route_kwargs(ev, route, cache):
+    kw = dict(EVAL_ROUTES[route])
+    if route != "host":
+        kw.update(gt_sizes=ev.gt_sizes, paste_cache=cache)
+    if route.startswith("device_score"):
+        kw["gt_records"] = ev.gt_masks
+    if route == "device_score_semantic":
+        kw["gt_semantic"] = ev.gt_semantic
+    return kw
+
+
+def eval_score(ev, route, detdata):
+    """The metrics of one sweep (AP, mAP, recall, precision) and its mIoU:
+    from the semantic maps (host, device_paste), from the confusion
+    totals (device_score_semantic) or none (device_score)."""
+    res = ev.evaluate_detections(detdata,
+                                 collect_semantic=route in ("host", "device_paste"))
+    metrics = {k: res[k] for k in ("AP", "mAP", "recall", "precision")}
+    if "semantic_maps" in res:
+        miou = ev.miou(res["semantic_maps"])
+    elif route == "device_score_semantic":
+        miou = ev.miou_from_confusions({d["imname"]: d["confusion"]
+                                        for d in detdata})
+    else:
+        miou = None
+    return metrics, miou, res["t_post_s"]
+
+
+def eval_checks(np, ev, out, packed_overlaps):
+    """What the routes' fetched arrays must agree on, exactly: boxes and
+    validity across the device routes; each ``device_score`` IoU row
+    against the host popcount over ``device_paste``'s packed masks; the
+    confusion totals against the host bincount over ``device_paste``'s
+    semantic maps.  Returns the number of IoU rows and confusion
+    matrices compared."""
+    n = ev.cfg.num_class + 1
+    rows = confs = 0
+    paste_by = {d["imname"]: d for d in out["device_paste"]}
+    for route in ("device_score", "device_score_semantic"):
+        for d in out[route]:
+            p = paste_by[d["imname"]]
+            need(np.array_equal(d["boxes"], p["boxes"])
+                 and np.array_equal(d["valid"], p["valid"]),
+                 f"eval {route} {d['imname']}: detections differ from device_paste")
+            gts = ev.gt_masks[d["imname"]]
+            gt_packed = np.stack([np.packbits(o["mask"], axis=-1) for o in gts])
+            gt_areas = np.asarray([int(o["mask"].sum()) for o in gts], np.int64)
+            for k in np.flatnonzero(d["valid"]):
+                want = packed_overlaps(p["full_masks_packed"][k], gt_packed, gt_areas)
+                need(np.array_equal(d["iou"][k, :len(gts)], want),
+                     f"eval {route} {d['imname']} row {k}: IoU != host popcount")
+                rows += 1
+            if route == "device_score_semantic":
+                joint = (ev.gt_semantic[d["imname"]].astype(np.int64).ravel() * n
+                         + p["semantic"].astype(np.int64).ravel())
+                want = np.bincount(joint, minlength=n * n).reshape(n, n)
+                need(np.array_equal(d["confusion"], want),
+                     f"eval {d['imname']}: confusion totals != host bincount")
+                confs += 1
+    return rows, confs
+
+
+def eval_modules():
+    """The port's evaluation path, as one namespace."""
+    from dis_yolo_tpu_torch.data.rasterize import instance_mask
+    from dis_yolo_tpu_torch.data.val_data import letterbox_image
+    from dis_yolo_tpu_torch.eval.map_eval import Evaluator
+    from dis_yolo_tpu_torch.eval.postprocess import detections_to_original
+    from dis_yolo_tpu_torch.eval.sweep import run_split
+    from dis_yolo_tpu_torch.eval.voc_eval import packed_overlaps
+    from dis_yolo_tpu_torch.models import api
+    from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
+    return types.SimpleNamespace(**locals())
+
+
+def eval_phase(np, torch, m, cfg, state_dict, device=None, sizes=EVAL_SIZES):
+    """The evaluation path: the eval split through ``run_split``'s routes
+    with the default NMS (K1) and with ``use_pallas_nms`` (K1 + K2),
+    scored by ``Evaluator``; fails unless every route gives the same AP,
+    mAP, recall and precision, with 0 < AP < 1 for a class, and
+    ``eval_checks`` holds.  Returns (record, (cfg, model, evaluator,
+    split)) for the timing."""
+    size = cfg.test_size
+    images, names, windows, orig = eval_split(np, m.letterbox_image, size, sizes)
+    dev = m.api.resolve_device(device)
+    base = m.api.create_model(cfg, device)
+    base.load_state_dict(state_dict)
+    thresh = m.calibrate_threshold(base, torch.from_numpy(images[:1]).to(dev), cfg)
+    ecfg = cfg.replace(obj_threshold=thresh)
+    models = {}
+    for k2 in (False, True):
+        models[k2] = m.api.create_model(ecfg.replace(use_pallas_nms=k2), device)
+        models[k2].load_state_dict(state_dict)
+    del base
+    ev = m.Evaluator(ecfg, "test", with_semantic=True, annotations=[], index=[])
+
+    def instances(det, h, w):
+        return m.detections_to_original(det["boxes"], det["masks"], h, w, size)
+
+    host, _ = m.run_split(ecfg, models[False], images, names, windows, device=device)
+    eval_ground_truth(np, ev, host, orig, instances, m.instance_mask)
+    n_gt = sum(len(v) for v in ev.gt_masks.values())
+
+    results, checks = {}, {}
+    for k2 in (False, True):
+        cache, out = {}, {}
+        for route in EVAL_ROUTES:
+            out[route], _ = m.run_split(ecfg, models[k2], images, names, windows,
+                                        device=device,
+                                        **eval_route_kwargs(ev, route, cache))
+            results[(k2, route)] = eval_score(ev, route, out[route])[:2]
+        checks[k2] = eval_checks(np, ev, out, m.packed_overlaps)
+        # a second sweep on the same cache: nothing uploaded or built again
+        held = dict(cache)
+        again, _ = m.run_split(ecfg, models[k2], images, names, windows, device=device,
+                               **eval_route_kwargs(ev, "device_score", cache))
+        need(set(cache) == set(held) and all(cache[k] is v for k, v in held.items()),
+             "eval: the second device_score sweep rebuilt or re-uploaded its cache")
+        for a, b in zip(again, out["device_score"]):
+            need(all(np.array_equal(a[key], b[key]) for key in ("boxes", "valid", "iou")),
+                 f"eval: the second device_score sweep differs on {a['imname']}")
+        need(eval_score(ev, "device_score", again)[0] == results[(k2, "device_score")][0],
+             "eval: the second device_score sweep scores differently")
+        if k2:
+            for a, b in zip(out["device_paste"], paste_default):
+                need(all(np.array_equal(a[key], b[key]) for key in a if key != "imname"),
+                     f"eval: device_paste with use_pallas_nms differs on {a['imname']}")
+        else:
+            paste_default = out["device_paste"]
+    first = results[(False, "host")][0]
+    for key, (metrics, _) in results.items():
+        need(metrics == first, f"eval: route {key} scores {metrics}, host route {first}")
+    need(any(0.0 < ap < 1.0 for ap in first["AP"]),
+         f"eval: no class with 0 < AP < 1: {first['AP']}")
+    mious = {f"{route}{'_k2' if k2 else ''}": r[1] for (k2, route), r in results.items()}
+    for k2 in ("", "_k2"):
+        need(mious["device_paste" + k2] == mious["device_score_semantic" + k2],
+             f"eval: mIoU from confusion totals != from semantic maps: {mious}")
+    record = {"threshold": thresh, "images": len(names),
+              "sizes_hw": [list(s) for s in sizes], "gt_instances": n_gt,
+              "valid_detections": int(sum(int(d["valid"].sum()) for d in again)),
+              "metrics": first, "miou": mious,
+              "iou_rows_and_confusions_checked": {str(k): v for k, v in checks.items()}}
+    return record, (ecfg, models[False], ev, (images, names, windows))
+
+
+def eval_timing(m, ecfg, model, ev, split, device=None, repeats=3):
+    """Seconds per image of each route: the device's predict (the copies to
+    the host included) and the host's post-processing (the evaluator's
+    ``t_post_s``), as the reference split them; the median of ``repeats``
+    sweeps after a warm one, each route on its own persistent cache (a
+    periodic validation's steady state)."""
+    images, names, windows = split
+    n, out = len(names), {}
+    routes = {"host": "host", "device_paste": "device_paste",
+              "device_score": "device_score"}
+    for label, route in routes.items():
+        cache, runs = {}, []
+        kw = eval_route_kwargs(ev, route, cache)
+        if route == "device_paste":      # the mAP sweep: no semantic maps
+            kw["want_semantic"] = False
+        for i in range(repeats + 1):
+            timing = {}
+            det, t_pred = m.run_split(ecfg, model, images, names, windows,
+                                      device=device, timing=timing, **kw)
+            t_post = ev.evaluate_detections(det)["t_post_s"]
+            if i:
+                runs.append({"predict_s": t_pred, "post_s": t_post,
+                             "fetch_wait_s": timing.get("fetch_s", 0.0)})
+
+        def med(key):
+            return sorted(r[key] for r in runs)[len(runs) // 2] / n
+
+        out[label] = {"predict_s_per_image": med("predict_s"),
+                      "post_s_per_image": med("post_s"),
+                      "fetch_wait_s_per_image": med("fetch_wait_s"),
+                      "runs": runs}
+    return out
 
 
 def nms_case(torch, gen, b, k):
@@ -1059,6 +1310,25 @@ def main() -> None:
     del model32, graphs32, f32, held
     print(f"serving graphs done at {time.time() - t_start:.0f} s", flush=True)
 
+    # the evaluation path: the seed-7 model with a threshold calibrated on
+    # the eval split, its three sweep routes, with and without K2
+    em = eval_modules()
+    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
+    cuda_assembly.extract_planes_cuda.launches = 0
+    cuda_nms.nms_cuda.launches = 0
+    eval_record, eval_ctx = eval_phase(np, torch, em, cfg, model.state_dict())
+    torch.cuda.synchronize()
+    eval_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
+                     "K2": cuda_nms.nms_cuda.launches,
+                     "K3": cuda_assembly.assemble_bwd_cuda.launches,
+                     "K4": cuda_assembly.extract_planes_cuda.launches}
+    print(f"eval path launches: {eval_launches}", flush=True)
+    need(eval_launches["K1"] > 0 and eval_launches["K2"] > 0,
+         f"a kernel of the eval path never launched: {eval_launches}")
+    print("eval path: " + json.dumps(eval_record), flush=True)
+    print(f"eval path done at {time.time() - t_start:.0f} s", flush=True)
+
     # ---- phase 4: timing ----------------------------------------------
     timings = {}
     for b in (1, 2):
@@ -1075,7 +1345,62 @@ def main() -> None:
         torch, lambda: step1(state1, tbatch, gen_t), 5, warmup=2, repeats=3)
     timings["train_step_ms_stage2_b2"] = cuda_ms(
         torch, lambda: step2(state2, tbatch, gen_t), 5, warmup=2, repeats=3)
+    # stage 1 without the locked layers' gradients (skip_nonfinite_updates
+    # off: no finite check, so the backward stops at layer 53) beside the
+    # default, which takes them for the check
+    trainer1n = api.create_model(tcfg.replace(skip_nonfinite_updates=False))
+    trainer1n.load_state_dict(sd1)
+    state1n, step1n = ts.init_train_state(trainer1n), ts.make_train_step(trainer1n)
+    timings["train_step_ms_stage1_b2_no_locked_grads"] = cuda_ms(
+        torch, lambda: step1n(state1n, tbatch, gen_t), 5, warmup=2, repeats=3)
     print("timings " + json.dumps(timings), flush=True)
+    stage1_traces = {
+        "default_locked_grads_checked": profile_window(
+            torch, lambda: step1(state1, tbatch, gen_t), 2,
+            timings["train_step_ms_stage1_b2"]),
+        "no_locked_grads": profile_window(
+            torch, lambda: step1n(state1n, tbatch, gen_t), 2,
+            timings["train_step_ms_stage1_b2_no_locked_grads"])}
+    del trainer1n, state1n, step1n
+    print("trace train step stage 1 B=2: " + json.dumps(
+        {k: {"device_busy_us_per_call": v["device_busy_us_per_call"],
+             "device_idle_share": v["device_idle_share"],
+             "kernel_launches_per_call": v["kernel_launches_per_call"]}
+         for k, v in stage1_traces.items()}), flush=True)
+
+    # the eval sweep, s/image per route: device predict and host post
+    eval_sweep = eval_timing(em, *eval_ctx)
+    for route, t in eval_sweep.items():
+        print(f"eval sweep {route}: predict {t['predict_s_per_image'] * 1e3:.2f} "
+              f"ms/image, post {t['post_s_per_image'] * 1e3:.2f} ms/image "
+              f"(fetch wait {t['fetch_wait_s_per_image'] * 1e3:.2f}); {smi_line}",
+              flush=True)
+
+    # the eval path's scoring products on one device_score batch: chunked
+    # as they ship, and one product over the whole image as a yardstick
+    scored = {}
+    with capturing(scored, (paste, "mask_iou_batch"), (paste, "semantic_confusion")):
+        em.run_split(eval_ctx[0], eval_ctx[1], *eval_ctx[3],
+                     **eval_route_kwargs(eval_ctx[2], "device_score_semantic", {}))
+    (full_b, gtp_b, gta_b), _ = scored["mask_iou_batch"]
+    (sem_b, gts_b, n_sem), _ = scored["semantic_confusion"]
+    det_f = full_b.flatten(-2).float()
+    gt_f = paste.unpack_mask_bits(gtp_b, full_b.shape[-1]).flatten(-2).float()
+    eval_scoring = {
+        "shapes": {"full_masks": list(full_b.shape), "gt_packed": list(gtp_b.shape)},
+        "mask_iou_batch_ms": graph_ms(torch, lambda: paste.mask_iou_batch(
+            full_b, gtp_b, gta_b), n=5, reps=5),
+        "one_product_intersections_ms": graph_ms(
+            torch, lambda: torch.matmul(det_f, gt_f.transpose(-1, -2)), n=5, reps=5),
+        "semantic_confusion_ms": graph_ms(torch, lambda: paste.semantic_confusion(
+            sem_b, gts_b, n_sem), n=5, reps=5)}
+    print(f"eval scoring B={full_b.shape[0]} D={full_b.shape[1]} "
+          f"{full_b.shape[2]}x{full_b.shape[3]} G={gtp_b.shape[1]}: mask_iou_batch "
+          f"{eval_scoring['mask_iou_batch_ms']:.3f} ms (one product over the image "
+          f"{eval_scoring['one_product_intersections_ms']:.3f} ms), "
+          f"semantic_confusion {eval_scoring['semantic_confusion_ms']:.3f} ms; "
+          f"{smi_line}", flush=True)
+    del det_f, gt_f
 
     # where the time goes: one traced window of predict + paste at B=1
     trace = profile_window(torch, lambda: serve(model, 1), 3,
@@ -1279,7 +1604,8 @@ def main() -> None:
     def path_launches(name):
         by_path = {"serving": launches.get(name, 0),
                    "training": train_launches.get(name, 0),
-                   "serving_graphs": graph_launches[name]}
+                   "serving_graphs": graph_launches[name],
+                   "eval": eval_launches[name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
@@ -1346,6 +1672,10 @@ def main() -> None:
                        "ptxas": ptxas,
                        "k1_modes_and_sweep": k1_sweep,
                        "k2_sweep": k2_sweep, "k2_shape": k2_shape,
+                       "launches_eval_path": eval_launches,
+                       "eval_path": eval_record, "eval_sweep": eval_sweep,
+                       "eval_scoring": eval_scoring,
+                       "trace_train_step_stage1": stage1_traces,
                        "seconds": time.time() - t_start,
                        "kernels": kernels},
                       f, indent=1)

@@ -1,4 +1,5 @@
-"""dis_yolo_tpu_torch: PyTorch/CUDA port of the DIS-YOLO serving path.
+"""dis_yolo_tpu_torch: PyTorch/CUDA port of DIS-YOLO (serving, training
+and evaluation).
 
 A second package beside the JAX reference ``dis_yolo_tpu``.  It imports
 torch and numpy only, never JAX or the JAX package.  Plain tensor code is

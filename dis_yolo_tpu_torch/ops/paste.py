@@ -10,8 +10,18 @@ detections overwrite earlier ones.
 The resize keeps the JAX package's dense form: two interpolation matrices
 with two non-zero taps per row and two float32 matrix products.  The taps
 are exact, so the products need full float32: on CUDA this module refuses
-to run with TF32 matmuls allowed.  Not ported yet: ``pack_mask_bits``,
-``unpack_mask_bits``, ``mask_iou_*`` and ``semantic_confusion``.
+to run with TF32 matmuls allowed.
+
+The scoring helpers of the device-scored evaluation sweep
+(``eval/sweep.py``) live here too: ``pack_mask_bits`` /
+``unpack_mask_bits`` (``np.packbits`` rows, big bit order),
+``mask_iou_single`` / ``mask_iou_batch`` (the det-vs-GT mask IoU matrix)
+and ``semantic_confusion`` (per-image confusion totals).  Their products
+contract 0/1 operands in float32 with float32 results: every product is
+exact and every sum an integer below 2^24, so the counts are exact and
+the IoU is bit-identical to the host popcount
+(``eval/voc_eval.packed_overlaps``).  (A product of two bfloat16 tensors
+would *return* bfloat16 and round any count above 256.)
 """
 
 from __future__ import annotations
@@ -151,3 +161,87 @@ def paste_masks_batch(masks: torch.Tensor, dets: torch.Tensor,
     full, valid = paste_masks_single(masks, dets, image_h, image_w, net_size)
     sem = merged_semantic_single(full, dets[..., 4], valid)
     return full, valid, sem
+
+
+def pack_mask_bits(m: torch.Tensor) -> torch.Tensor:
+    """``np.packbits(m, axis=-1)`` (bitorder 'big'): bool [..., W] ->
+    uint8 [..., ceil(W/8)], the last byte's pad bits zero."""
+    w = m.shape[-1]
+    pad = -w % 8
+    if pad:
+        m = torch.nn.functional.pad(m.to(torch.uint8), (0, pad))
+    m8 = m.reshape(m.shape[:-1] + ((w + pad) // 8, 8)).to(torch.int32)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=m.device)
+    return torch.bitwise_left_shift(m8, shifts).sum(-1).to(torch.uint8)
+
+
+def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of ``pack_mask_bits``: uint8 [..., ceil(W/8)] -> bool
+    [..., W] (``np.unpackbits(..., count=W)``)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = torch.bitwise_right_shift(packed[..., None], shifts) & 1
+    bits = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * 8,))
+    return bits[..., :width].to(torch.bool)
+
+
+def _count_products(a: torch.Tensor, b: torch.Tensor,
+                    chunk: int = 4096) -> torch.Tensor:
+    """a [..., M, P] x b [..., N, P] (float32 0/1) -> [..., M, N] float32
+    counts, exact below 2^24.  The contraction is cut into chunks of
+    ``chunk`` pixels, one batched product per chunk, summed after: a
+    single product with a contraction as long as a 720 x 960 image runs
+    on a handful of thread blocks on the card."""
+    p = a.shape[-1]
+    c = -(-p // chunk)
+    if c > 1:
+        pad = c * chunk - p
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, pad))
+        a = a.unflatten(-1, (c, chunk)).transpose(-2, -3)    # [..., c, M, k]
+        b = b.unflatten(-1, (c, chunk)).transpose(-2, -3)    # [..., c, N, k]
+        return torch.matmul(a, b.transpose(-1, -2)).sum(-3)
+    return torch.matmul(a, b.transpose(-1, -2))
+
+
+def mask_iou_single(full_masks: torch.Tensor, gt_packed: torch.Tensor,
+                    gt_areas: torch.Tensor) -> torch.Tensor:
+    """Det-vs-GT mask IoU matrix: full_masks bool [..., D, H, W] (pasted
+    detections), gt_packed uint8 [..., G, H, ceil(W/8)], gt_areas float32
+    [..., G] (exact pixel counts) -> float32 [..., D, G].
+
+    Bit-identical to ``eval.voc_eval.packed_overlaps``: the intersections
+    are float32 products of 0/1 operands (exact, sums below 2^24), and
+    the final division sees the same integers.
+    """
+    w = full_masks.shape[-1]
+    gt = unpack_mask_bits(gt_packed, w)                       # [..., G, H, W]
+    det_f = full_masks.flatten(-2).to(torch.float32)          # [..., D, HW]
+    gt_f = gt.flatten(-2).to(torch.float32)                   # [..., G, HW]
+    inter = _count_products(det_f, gt_f)                      # [..., D, G]
+    det_area = full_masks.flatten(-2).sum(-1, dtype=torch.int32).to(
+        torch.float32)
+    union = det_area[..., :, None] + gt_areas[..., None, :] - inter
+    # empty/empty pairs (union 0) are never read: zero-area GTs are
+    # dropped at rasterization and zero-area detections are invalid
+    return inter / torch.clamp_min(union, 1.0)
+
+
+def mask_iou_batch(full_masks: torch.Tensor, gt_packed: torch.Tensor,
+                   gt_areas: torch.Tensor) -> torch.Tensor:
+    """``mask_iou_single`` over a batch: [B,D,H,W] x [B,G,H,Wb] x [B,G]
+    -> [B,D,G]."""
+    return mask_iou_single(full_masks, gt_packed, gt_areas)
+
+
+def semantic_confusion(pred_sem: torch.Tensor, gt_sem: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """Confusion totals of semantic maps [..., H, W] -> int32 [..., n, n]
+    with conf[true, pred] = |{px: gt == true and pred == pred}|, equal to
+    the host bincount (``Evaluator.miou``): one-hot planes contracted in
+    float32, exact below 2^24 pixels."""
+    labels = torch.arange(n, dtype=torch.int32, device=pred_sem.device)
+    t1 = (gt_sem.flatten(-2).to(torch.int32)[..., None, :]
+          == labels[:, None]).to(torch.float32)                # [..., n, HW]
+    p1 = (pred_sem.flatten(-2).to(torch.int32)[..., None, :]
+          == labels[:, None]).to(torch.float32)
+    return _count_products(t1, p1).to(torch.int32)

@@ -24,10 +24,13 @@ same formulas and constants (``make_optimizer`` in the JAX package):
     and the BN running statistics of a step that made any of them
     non-finite are put back (``_guard_stats``).
 
-Differences from the JAX step, by design: locked parameters get no
-gradient at all (``requires_grad`` off; their update is zero either way),
-so the finite check sees the trainable gradients only; the model, its BN
-statistics and the moments are updated in place.  Not ported (refused by
+The finite check tests the same gradients as JAX's ``apply_if_finite``,
+which wraps the whole ``multi_transform``: those of the locked layers
+too.  So with ``skip_nonfinite_updates`` on (the default) and layers
+locked, the step also takes the locked parameters' gradients, for the
+check only (their update is zero either way); with it off, locked
+parameters get no gradient at all (``requires_grad`` off).  The model,
+its BN statistics and the moments are updated in place.  Not ported (refused by
 ``cfg.check_trainable()``): ``grad_accum > 1``, ``remat``, on-device
 augmentation and corpus, multi-step dispatch and sync-BN.
 
@@ -180,14 +183,18 @@ def adam_init(params: Dict[str, torch.Tensor], cfg: DISYoloConfig) -> AdamState:
 
 def adam_apply(state: AdamState, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor], cfg: DISYoloConfig) -> bool:
-    """One optimizer update, in place on ``params`` and ``state``; grads
-    are given for the trainable names (those of ``state.mu``).  Returns
-    whether the update was applied (False: skipped as non-finite)."""
+    """One optimizer update, in place on ``params`` and ``state``.
+    ``grads`` holds the trainable names (those of ``state.mu``) and may
+    hold locked ones: every gradient given enters the finite check, as
+    every leaf of the tree does in optax's ``apply_if_finite``, and only
+    the trainable ones are applied.  Returns whether the update was
+    applied (False: skipped as non-finite)."""
     names = list(state.mu)
     g = [grads[n].float() for n in names]
     if cfg.skip_nonfinite_updates:
-        finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all()) \
-            if g else True
+        finite = bool(torch.stack([torch.isfinite(x).all()
+                                   for x in grads.values()]).all()) \
+            if grads else True
         state.notfinite_count = 0 if finite else state.notfinite_count + 1
         state.total_notfinite += 0 if finite else 1
         if not (finite or state.notfinite_count > MAX_CONSECUTIVE_ERRORS):
@@ -258,16 +265,20 @@ def make_train_step(model: DISYolo, device=None):
     ``batch`` holds numpy arrays or tensors on the device (the reference
     7-tuple, or uint8 images and ``masks_packed``; ``prepare_batch``);
     ``generator`` (a ``torch.Generator``) draws the mask loss's ROI picks.
-    Turns ``requires_grad`` off for the locked layers' parameters.
+    The locked layers' parameters keep ``requires_grad`` only when their
+    gradients enter the finite check (``cfg.skip_nonfinite_updates``).
     ``metrics`` are detached scalar tensors on the device.
     """
     dev = _check_model(model, device)
     cfg = model.cfg
     mask = trainable_mask([n for n, _ in model.named_parameters()], cfg)
     params = dict(model.named_parameters())
-    for name, p in params.items():
-        p.requires_grad_(mask[name])
     trainable = [n for n in params if mask[n]]
+    # the gradients taken: the trainable ones, and the locked ones for the
+    # finite check of apply_if_finite
+    wanted = list(params) if cfg.skip_nonfinite_updates else trainable
+    for name, p in params.items():
+        p.requires_grad_(name in wanted)
     bns = [m for m in model.modules() if isinstance(m, ConvBN)]
     all_stats = [t for m in bns for t in (m.bn.running_mean, m.bn.running_var)]
     unlocked_stats = [t for m in bns if not m.lock
@@ -284,13 +295,13 @@ def make_train_step(model: DISYolo, device=None):
         old = [t.clone() for t in unlocked_stats] \
             if cfg.skip_nonfinite_updates else None
         total, metrics = total_loss(model, batch, u_prop, u_gt)
-        grads = torch.autograd.grad(total, [params[n] for n in trainable]) \
-            if trainable else ()
+        grads = torch.autograd.grad(total, [params[n] for n in wanted]) \
+            if wanted else ()
         with torch.no_grad():
             if old is not None and not bool(torch.isfinite(torch.cat(
                     [t.reshape(-1) for t in all_stats])).all()):
                 torch._foreach_copy_(unlocked_stats, old)
-            adam_apply(state.opt, params, dict(zip(trainable, grads)), cfg)
+            adam_apply(state.opt, params, dict(zip(wanted, grads)), cfg)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

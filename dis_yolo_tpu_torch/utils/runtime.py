@@ -6,7 +6,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
 
 def calibrate_threshold(model, images, cfg,
@@ -23,12 +22,20 @@ def calibrate_threshold(model, images, cfg,
     greedy per-class NMS yields >= ``min_survivors`` (default
     ``cfg.max_detection``).  Returns that count's score as threshold.
     ``images`` must lie on the model's device.
+
+    The forward runs in eval mode (running BN statistics, none updated),
+    whatever mode the model is in; the model is handed back in the mode
+    it came in.
     """
+    from dis_yolo_tpu_torch.models import api
     from dis_yolo_tpu_torch.ops.decode import decode_all
 
     min_survivors = min_survivors or cfg.max_detection
-    with torch.no_grad():
-        raws = model(images)
+    was_training = model.training
+    try:
+        raws = api.forward(model, images, next(model.parameters()).device)
+    finally:
+        model.train(was_training)
     preds = decode_all(raws[:3], cfg)
     confs, probs, boxes = [], [], []
     for p in preds:

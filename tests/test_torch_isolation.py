@@ -52,11 +52,31 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and files[-1].exists()
     port = ROOT / "dis_yolo_tpu_torch"
     for module in ("models/fold.py", "models/s2d.py", "models/quant.py",
-                   "ops/cuda_assembly.py"):      # K4's wrapper lives here
+                   "ops/cuda_assembly.py",       # K4's wrapper lives here
+                   "eval/sweep.py", "eval/map_eval.py", "eval/voc_eval.py",
+                   "eval/postprocess.py", "data/val_data.py",
+                   "data/rasterize.py", "data/augment.py"):
         assert port / module in files, module
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_imports_no_cv2_at_module_level():
+    """The card's machine has no OpenCV: importing any module of the port
+    must not need it (``DefectValData`` imports it when it decodes)."""
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), str(path))
+        top = [node for node in tree.body
+               if isinstance(node, (ast.Import, ast.ImportFrom, ast.Try))]
+        roots = set()
+        for node in top:
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Import):
+                    roots |= {a.name.split(".")[0] for a in sub.names}
+                elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                    roots.add(sub.module.split(".")[0])
+        assert not roots & {"cv2", "PIL"}, path.relative_to(ROOT)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

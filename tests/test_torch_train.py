@@ -555,3 +555,100 @@ def test_train_step_cpu_locks_and_skip():
     assert state.opt.total_notfinite == 1 and state.opt.count == 3
     for key, value in model.state_dict().items():
         assert torch.equal(value, kept[key]), key
+
+
+@pytest.mark.parametrize("bad", [None, "convolutional1.conv.kernel",
+                                 "convolutional1.bn.scale"])
+def test_nonfinite_skip_tests_locked_gradients_as_optax(bad):
+    """A gradient set whose only non-finite value lies in a locked layer:
+    optax's ``apply_if_finite`` around the whole ``multi_transform``
+    returns a zero update and counts it (``notfinite_count`` 1), and the
+    port's ``adam_apply``, given the locked gradients too, skips the same
+    step with the same counters.  With every gradient finite (``bad``
+    None) both apply the update (within the optimizer tolerance above)."""
+    cfg = DISYoloConfig(lr_values=(1e-2,) * 4, locked_layers=(1,))
+    jcfg = JaxConfig(lr_values=(1e-2,) * 4, locked_layers=(1,))
+    rng = np.random.RandomState(12)
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), opt_params(rng))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    tx = jax_ts.make_optimizer(jparams, jcfg)
+    jstate = tx.init(jparams)
+    params = {torch_name(k): T(v.copy()) for k, v in flat(tree)}
+    state = ts.adam_init(params, cfg)
+    g = jax.tree.map(lambda a: (rng.randn(*a.shape) * 0.3).astype(np.float32),
+                     tree)
+    if bad is not None:
+        layer, block, leaf = bad.split(".")
+        {"kernel": g[layer]["conv"]["kernel"],
+         "scale": g[layer]["bn"]["scale"]}[leaf].flat[1] = np.inf
+    updates, jstate = tx.update(jax.tree.map(jnp.asarray, g), jstate, jparams)
+    jparams = optax.apply_updates(jparams, updates)
+    grads = {torch_name(k): T(v) for k, v in flat(g)}
+    assert set(grads) - set(state.mu) == {n for n in grads
+                                          if n.startswith("convolutional1.")}
+    applied = ts.adam_apply(state, params, grads, cfg)
+
+    assert int(jstate.notfinite_count) == (bad is not None)
+    assert applied == (bad is None)
+    assert state.notfinite_count == int(jstate.notfinite_count)
+    assert state.total_notfinite == int(jstate.total_notfinite)
+    assert state.count == (bad is None)
+    for key, want in flat(jax.tree.map(np.asarray, jparams)):
+        if bad is not None:    # optax's zero update: nothing moved
+            np.testing.assert_array_equal(want, tree_leaf(tree, key))
+        np.testing.assert_allclose(params[torch_name(key)].numpy(), want,
+                                   rtol=0, atol=1e-6, err_msg=key)
+    moved = [k for k, _ in flat(tree)
+             if not np.array_equal(params[torch_name(k)].numpy(),
+                                   tree_leaf(tree, k))]
+    assert moved == ([] if bad is not None else
+                     [k for k, _ in flat(tree)
+                      if not k.startswith("convolutional1/")])
+
+
+def tree_leaf(tree, key):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def test_train_step_skips_step_nonfinite_only_in_locked_layer():
+    """Stage 1 on the CPU: a step whose only non-finite gradient is a
+    locked layer's (conv 1's kernel, made inf by a gradient hook) is
+    skipped and counted, as JAX's ``apply_if_finite`` skips it: no
+    parameter or moment moves (the unlocked layers' BN statistics, which
+    the forward updates, move as they do in JAX).  The next, finite step
+    is applied, and locked layers stay bit-unchanged throughout."""
+    cfg = DISYoloConfig(image_size=64, compute_dtype="float32",
+                        pre_nms_top_k=64)
+    model = api.init_model(cfg, seed=1, device="cpu")
+    state = ts.init_train_state(model, device="cpu")
+    step = ts.make_train_step(model, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = synthetic_batch(cfg, 2, 3, seed=13)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    poison = {"on": True}
+    weight = model.convolutional1.conv.weight
+    if weight.requires_grad:   # the locked kernel's gradient is taken
+        weight.register_hook(
+            lambda g: g * float("inf") if poison["on"] else g)
+    state, metrics = step(state, batch, gen)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert state.opt.total_notfinite == 1 and state.opt.notfinite_count == 1
+    assert state.opt.count == 0
+    for key, value in model.named_parameters():
+        assert torch.equal(value, sd0[key]), key
+    for key, value in model.state_dict().items():
+        if ts.layer_id(key) in cfg.locked_layers:
+            assert torch.equal(value, sd0[key]), key
+    assert all(not bool(m.any()) for m in state.opt.mu.values())
+
+    poison["on"] = False
+    state, _ = step(state, batch, gen)
+    assert state.opt.count == 1 and state.opt.notfinite_count == 0
+    assert state.opt.total_notfinite == 1
+    for key, value in model.state_dict().items():
+        if "num_batches_tracked" in key:
+            continue
+        assert torch.equal(value, sd0[key]) == (
+            ts.layer_id(key) in cfg.locked_layers), key
