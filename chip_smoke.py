@@ -100,6 +100,31 @@ Phases (any failure exits non-zero before the last line is printed):
      routes; K1 in its three modes beside their bounds and a zero fill of
      its output, and each mode's launch shapes.
 
+  The Solver (after the eval path in phase 3, timed in phase
+  4): a seeded split of 8 train and 4 val images (720x960 and 960x720,
+  concrete-like texture with darkened polygons, VIA labels over the 3
+  classes) written as binary PPM under ``build/``, read with no OpenCV
+  or PIL; ``dis_yolo_tpu_torch.cli.main`` in process three times:
+  ``train --stage 1`` (6 steps at 576^2, B=2, a validation and a
+  checkpoint every 3), ``train --stage 2 --weights-from`` stage 1's step
+  6 (3 steps), and ``train --restore auto`` over run 1 to step 9.  It
+  fails unless every logged loss is finite, layers 1-52 are bit-unchanged
+  across stage 1, steps 3 and 6 are saved and ``best.json`` names one,
+  the resumed state equals the step-6 checkpoint bit for bit (every
+  tensor, Adam's count, the step), stage 2 starts from stage 1's weights
+  with a fresh optimizer, validation mAP lies in [0, 1], and
+  ``ParallelTrainData`` with 2 spawned workers gives the inline batches
+  and stops within 10 s.  Phase 4 (``--out`` key
+  ``solver_timing``): ``build_example`` ms per example,
+  ``ParallelTrainData`` batches/s with 0, 2 and 4 workers, the Solver's
+  wall, ``train_timer`` and ``load_timer`` s/step for both stages (and
+  stage 1 fed by 4 loader processes), a profiler window of 5 Solver
+  steps (idle share, launches, the largest gaps), the blocking ms of
+  ``save_checkpoint_background``, and the B=1 forward cut after each
+  ``stop_stage``, as the wall of dependent calls
+  (``utils.profiling.chain_scan_time``) and as device time (CUDA-graph
+  replays).
+
 Phase 1 prints, and ``--out`` keeps under ``ptxas``, each kernel's
 registers and spill bytes from its ``nvcc -Xptxas -v`` log; the run fails
 at its end if K1 or K2 has a stack frame or spills.  K2's forced general
@@ -111,8 +136,8 @@ launch; ``--out`` keeps the sweeps under ``k2_sweep`` and
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
 Each kernel's ``launches`` is the sum over the serving path, the
-training path, the serving graphs' path and the eval path, and
-``launches_by_path``
+training path, the serving graphs' path, the eval path and the Solver's
+path, and ``launches_by_path``
 holds each path's own count (each read from its run, with the counters
 set to 0 just before it).  Only K4 has a single PyTorch call computing
 the same function (``torch.empty(k*k,S,S).copy_(sm.permute(2,0,1))``);
@@ -122,14 +147,17 @@ the same function (``torch.empty(k*k,S,S).copy_(sm.permute(2,0,1))``);
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -723,6 +751,370 @@ def eval_timing(m, ecfg, model, ev, split, device=None, repeats=3):
                       "runs": runs}
     return out
 
+
+# the Solver's split: 8 train and 4 val images, half landscape
+# and half portrait (h, w), stored as binary PPM under .jpg names
+SOLVER_SIZES = ((720, 960), (960, 720))
+SOLVER_SPLIT = {"train": 8, "val": 4}
+SOLVER_CLASSES = ("crack", "spall", "rebar")
+
+
+def solver_split(np, root, rasterize, image_io, sizes=SOLVER_SIZES, seed=0):
+    """Write the seeded split under ``root``: concrete-like texture with
+    1-4 polygons darkened per image (VIA regions over the 3 classes),
+    ``images/<stem>.jpg`` as P6, ``cache/ground_truth_cache.pkl`` (regions
+    and size) and ``cache/<phase>.txt``.  Needs no OpenCV or PIL."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    for phase, n in SOLVER_SPLIT.items():
+        img_dir = os.path.join(root, phase, "images")
+        cache_dir = os.path.join(root, phase, "cache")
+        os.makedirs(img_dir)
+        os.makedirs(cache_dir)
+        annotations, stems = [], []
+        for i in range(n):
+            h, w = sizes[i % 2]
+            img = rng.normal(140, 25, (h, w, 3))
+            regions = {}
+            for r in range(rng.randint(1, 5)):
+                cx, cy = rng.randint(w // 8, 7 * w // 8), rng.randint(h // 8, 7 * h // 8)
+                rad = rng.randint(min(h, w) // 20, min(h, w) // 5)
+                ang = np.sort(rng.uniform(0, 2 * np.pi, rng.randint(4, 12)))
+                rr = rad * rng.uniform(0.5, 1.0, ang.size)
+                xs = np.clip(cx + rr * np.cos(ang), 0, w - 1).astype(int).tolist()
+                ys = np.clip(cy + rr * np.sin(ang), 0, h - 1).astype(int).tolist()
+                shape = [{"type": "out", "all_points_x": xs, "all_points_y": ys}]
+                img[rasterize.instance_mask(shape, h, w)] *= 0.4
+                regions[str(r)] = {"region_attributes": SOLVER_CLASSES[rng.randint(3)],
+                                   "shape_attributes": shape}
+            stem = f"{phase}{i:04d}"
+            image_io.write_ppm(os.path.join(img_dir, stem + ".jpg"),
+                               img.clip(0, 255).astype(np.uint8))
+            annotations.append({"filename": stem + ".jpg", "regions": regions,
+                                "size": [h, w]})
+            stems.append(stem)
+        with open(os.path.join(cache_dir, "ground_truth_cache.pkl"), "wb") as f:
+            pickle.dump(annotations, f)
+        with open(os.path.join(cache_dir, f"{phase}.txt"), "w") as f:
+            f.write("".join(s + "\n" for s in stems))
+
+
+def host_state(torch, solver):
+    """A host copy of a Solver's train state: weights, Adam's moments and
+    counters, the step."""
+    st = solver.state
+    return {"model": {k: v.detach().cpu().clone()
+                      for k, v in solver.model.state_dict().items()},
+            "mu": {k: v.detach().cpu().clone() for k, v in st.opt.mu.items()},
+            "nu": {k: v.detach().cpu().clone() for k, v in st.opt.nu.items()},
+            "count": st.opt.count, "total_notfinite": st.opt.total_notfinite,
+            "step": st.step}
+
+
+def tensors_equal(a, b):
+    return set(a) == set(b) and all(a[k].equal(b[k]) for k in a)
+
+
+def timed_stop(loader, limit=10.0):
+    """Seconds ``loader.stop()`` took; fails the run past ``limit``."""
+    import threading
+    t0 = time.monotonic()
+    th = threading.Thread(target=loader.stop, daemon=True)
+    th.start()
+    th.join(limit)
+    need(not th.is_alive(), f"ParallelTrainData.stop() did not return in {limit} s")
+    return time.monotonic() - t0
+
+
+def solver_modules():
+    """The port's training loop, as one namespace."""
+    from dis_yolo_tpu_torch import cli
+    from dis_yolo_tpu_torch.data import dataset, image_io, rasterize
+    from dis_yolo_tpu_torch.models.dis_yolo import STOP_STAGES, DISYolo
+    from dis_yolo_tpu_torch.train import checkpoint as ckpt
+    from dis_yolo_tpu_torch.train import solver as solver_mod
+    from dis_yolo_tpu_torch.train import train_step as ts
+    from dis_yolo_tpu_torch.utils.profiling import chain_scan_time
+    return types.SimpleNamespace(**locals())
+
+
+def solver_phase(np, torch, m, root, size=576, device="cuda", sizes=SOLVER_SIZES):
+    """The training loop through ``cli.main``, in process: stage 1 (6
+    steps, a checkpoint and a validation every 3), stage 2 from stage 1's
+    step 6 (``--weights-from``, 3 steps), and a resume of run 1
+    (``--restore auto``, to step 9); then the same split through
+    ``ParallelTrainData`` with 2 spawned workers against workers=0.
+    Fails unless every logged loss is finite, layers 1-52 are unchanged
+    across stage 1, the checkpoints and ``best.json`` are in place, the
+    resumed state is the saved one bit for bit, stage 2 starts from the
+    stage-1 weights with a fresh optimizer, validation mAP is in [0, 1],
+    the pool's batches equal the inline ones and its stop is bounded.
+    Returns (record, the Solvers of the three runs)."""
+    solver_split(np, root, m.rasterize, m.image_io, sizes)
+    out1, out2 = os.path.join(root, "run1"), os.path.join(root, "run2")
+    common = ["--dataset", root, "--image-size", str(size), "--batch-size", "2",
+              "--summary-iter", "1", "--save-iter", "3", "--device", device]
+    entry, solvers = [], []
+    real_train = m.solver_mod.Solver.train
+
+    def train(self, max_iter=None):
+        entry.append(host_state(torch, self))
+        t0 = time.perf_counter()
+        state = real_train(self, max_iter)
+        self.wall_s = time.perf_counter() - t0
+        solvers.append(self)
+        return state
+
+    m.solver_mod.Solver.train = train
+    try:
+        m.cli.main(["train", "--stage", "1", "--max-iter", "6",
+                    "--output-dir", out1] + common)
+        ckpt_dir = os.path.join(out1, "checkpoint")
+        steps1 = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+        best = m.ckpt.read_best(ckpt_dir)
+        step6 = os.path.join(ckpt_dir, "step_00000006")
+        saved6 = torch.load(os.path.join(step6, "state"), weights_only=True)
+        m.cli.main(["train", "--stage", "2", "--max-iter", "3", "--output-dir", out2,
+                    "--weights-from", step6] + common)
+        m.cli.main(["train", "--stage", "1", "--max-iter", "9", "--output-dir", out1,
+                    "--restore", "auto"] + common)
+    finally:
+        m.solver_mod.Solver.train = real_train
+    need(steps1 == ["step_00000003", "step_00000006"], f"stage 1 checkpoints: {steps1}")
+    need(best is not None and best["step"] in (3, 6), f"best.json: {best}")
+    run1_end = host_state(torch, solvers[0])
+    locked_keys = [k for k in entry[0]["model"]
+                   if m.ts.layer_id(k) in solvers[0].cfg.locked_layers]
+    need(len(locked_keys) > 0 and all(entry[0]["model"][k].equal(run1_end["model"][k])
+                                      for k in locked_keys),
+         "stage 1 moved a locked layer (1-52)")
+    need(tensors_equal(run1_end["model"], saved6["model"])
+         and tensors_equal(run1_end["mu"], saved6["mu"]),
+         "stage 1's final state differs from its step-6 checkpoint")
+    # stage 2: the stage-1 weights, a fresh optimizer and step
+    s2 = entry[1]
+    need(tensors_equal(s2["model"], saved6["model"]),
+         "stage 2 did not start from stage 1's step-6 weights")
+    need(s2["count"] == 0 and s2["step"] == 0 and s2["mu"]
+         and all(not v.any() for v in s2["mu"].values())
+         and all(not v.any() for v in s2["nu"].values()),
+         "stage 2 did not start with a fresh optimizer")
+    # the resume: every tensor, Adam's count and the step as saved
+    r = entry[2]
+    need(r["step"] == saved6["step"] == 6 and r["count"] == saved6["count"] == 6,
+         f"resume at step {r['step']} count {r['count']}, saved "
+         f"{saved6['step']} / {saved6['count']}")
+    need(tensors_equal(r["model"], saved6["model"]) and tensors_equal(r["mu"], saved6["mu"])
+         and tensors_equal(r["nu"], saved6["nu"]),
+         "the resumed state differs from the step-6 checkpoint")
+    need(solvers[2].state.step == 9 and os.path.isdir(os.path.join(ckpt_dir, "step_00000009")),
+         "the resumed run did not reach step 9")
+    rows = []
+    for out in (out1, out2):
+        with open(os.path.join(out, "checkpoint", "train_metrics.jsonl")) as f:
+            rows += [json.loads(line) for line in f]
+    train_rows = [r_ for r_ in rows if r_["kind"] == "train"]
+    val_rows = [r_ for r_ in rows if r_["kind"] == "val"]
+    need(len(train_rows) == 6 + 3 + 3, f"{len(train_rows)} metric rows, expected 12")
+    need(all(np.isfinite(v) for r_ in train_rows for k, v in r_.items()
+             if k not in ("ts", "kind")), "a logged training metric is not finite")
+    need(all(r_["skipped_nonfinite"] == 0 for r_ in train_rows),
+         "a step was skipped as non-finite")
+    need(len(val_rows) == 2 + 1 + 1 and all(0.0 <= r_["mAP"] <= 1.0 for r_ in val_rows),
+         f"validation mAP out of [0, 1] or missing: {[r_['mAP'] for r_ in val_rows]}")
+    # the pool: spawned workers against the inline stream, bounded stop
+    cfg = solvers[0].cfg
+    ref = m.dataset.ParallelTrainData(cfg, "train", seed=4, workers=0)
+    want = [ref.get() for _ in range(3)]
+    pool = m.dataset.ParallelTrainData(cfg, "train", seed=4, workers=2)
+    pool.start_prefetch()
+    got = [pool.next_prefetched() for _ in range(3)]
+    stop_s = timed_stop(pool)
+    for i, (g, w) in enumerate(zip(got, want)):
+        need(all(np.array_equal(g[k], w[k]) for k in w),
+             f"ParallelTrainData workers=2 batch {i} differs from workers=0")
+    record = {
+        "split": {k: v for k, v in SOLVER_SPLIT.items()},
+        "sizes_hw": [list(s) for s in sizes],
+        "stage1_checkpoints": steps1, "best": best,
+        "train_losses": [r_["total_loss"] for r_ in train_rows],
+        "val_mAP": [r_["mAP"] for r_ in val_rows],
+        "locked_entries_unchanged": len(locked_keys),
+        "resume_step": r["step"], "parallel_loader_stop_s": stop_s,
+        "runs": [{"stage": 2 if i == 1 else 1, "steps": s.train_timer.calls,
+                  "wall_s": s.wall_s,
+                  "train_timer_s_per_step": s.train_timer.average_time,
+                  "load_timer_s_per_step": s.load_timer.average_time}
+                 for i, s in enumerate(solvers)]}
+    return record, solvers
+
+
+def solver_window(torch, solver, steps, wall_ms_per_step, skip=2, top=5):
+    """One torch.profiler window over ``steps`` steps of ``solver.train``,
+    after ``skip`` steps of the same call (the loader's start is outside
+    the window; the waits for the next batches are inside): device busy
+    time (the union of the kernels' and copies' intervals), its idle
+    share against the unprofiled ``wall_ms_per_step``, device launches
+    per step, and the ``top`` largest gaps between device work, each
+    with the device work around it and the innermost torch ops running
+    on the host across its middle (none: the host ran Python, such as
+    the wait for a batch)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    real, calls, clock = solver.step_fn, [0], {}
+
+    def step_fn(*a):
+        if calls[0] == skip:
+            torch.cuda.synchronize()
+            prof.start()
+            clock["t0"] = time.perf_counter()
+        out = real(*a)
+        calls[0] += 1
+        if calls[0] == skip + steps:
+            torch.cuda.synchronize()
+            clock["t1"] = time.perf_counter()
+            prof.stop()
+        return out
+
+    solver.step_fn = step_fn
+    try:
+        solver.train(max_iter=solver.state.step + skip + steps)
+    finally:
+        solver.step_fn = real
+    wall_us = (clock["t1"] - clock["t0"]) * 1e6 / steps
+    cuda_t = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == cuda_t)
+    host = [(e.time_range.start, e.time_range.end, e.name)
+            for e in events if e.device_type != cuda_t]
+    if not dev:
+        return {"device_busy_us_per_step": "not measured"}
+    busy, gaps, end = 0.0, [], dev[0][0]
+    prev = dev[0][2]
+    for start, stop, name in dev:
+        if start > end:
+            gaps.append((start - end, end, start, prev, name))
+        busy += max(0.0, stop - max(start, end))
+        if stop > end:
+            end, prev = stop, name
+    largest = []
+    for gap, a, b, before, after in sorted(gaps, reverse=True)[:top]:
+        mid = (a + b) / 2
+        around = sorted((s1 - s0, n) for s0, s1, n in host if s0 <= mid <= s1)
+        largest.append({"gap_us": gap, "after": before[:80], "before": after[:80],
+                        "host_ops_across": [n for _, n in around[:3]]})
+    return {"steps": steps, "wall_us_per_step_profiled": wall_us,
+            "device_busy_us_per_step": busy / steps,
+            "device_idle_share": 1 - busy / steps / (wall_ms_per_step * 1e3),
+            "device_launches_per_step": len(dev) / steps,
+            "gaps_total_us_per_step": sum(g[0] for g in gaps) / steps,
+            "gaps_over_1ms": sum(1 for g in gaps if g[0] > 1e3),
+            "largest_gaps": largest}
+
+
+def solver_timing_run(np, torch, m, root, cfg, state_dict, device="cuda", steps=10):
+    """Phase 4's numbers of the training loop: ``build_example`` ms per
+    example at ``cfg.image_size`` (one thread, cold and warm caches);
+    ``ParallelTrainData`` batches/s with 0, 2 and 4 workers; the Solver's
+    wall, ``train_timer`` and ``load_timer`` s/step over ``steps`` steps
+    after 3 warm ones, stage 1 and stage 2 with the prefetch thread
+    (``loader_workers=0``, the default) and stage 1 with 4 worker
+    processes (no validation); a profiler window of 5 stage-1 Solver
+    steps; the blocking ms of
+    ``save_checkpoint_background``; and the forward ms at B=1 cut after
+    each ``stop_stage``: the wall of chains of dependent calls (CUDA
+    events, the host's launches included) and the device time of
+    CUDA-graph replays."""
+    out = {}
+    labels = m.dataset.load_labels(cfg, "train")
+    rng = np.random.RandomState(0)
+    masks, images = m.dataset.MaskCache(), m.dataset.ImageCache()
+
+    def examples(n):
+        t0 = time.perf_counter()
+        for i in range(n):
+            m.dataset.build_example(cfg, labels[i % len(labels)], rng, True,
+                                    masks, images.load)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out["build_example_ms_cold"] = examples(len(labels))
+    out["build_example_ms_warm"] = examples(4 * len(labels))
+    rates = {}
+    for workers in (0, 2, 4):
+        loader = m.dataset.ParallelTrainData(cfg, "train", seed=0, workers=workers)
+        loader.start_prefetch()
+        loader.next_prefetched()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            loader.next_prefetched()
+        rates[f"workers_{workers}"] = 10 / (time.perf_counter() - t0)
+        timed_stop(loader)
+    out["parallel_loader_batches_per_s"] = rates
+
+    for key, locked, workers in (("solver_stage1", tuple(range(1, 53)), 0),
+                                 ("solver_stage2", (), 0),
+                                 ("solver_stage1_loader_workers4",
+                                  tuple(range(1, 53)), 4)):
+        scfg = cfg.replace(locked_layers=locked, save_iter=10 ** 6,
+                           summary_iter=10 ** 6, loader_workers=workers,
+                           output_dir=os.path.join(root, f"timing_{key}"))
+        solver = m.solver_mod.Solver(scfg, seed=0, device=device)
+        solver.model.load_state_dict(state_dict)
+        solver.train(max_iter=3)
+        solver.load_timer, solver.train_timer = type(solver.load_timer)(), \
+            type(solver.train_timer)()
+        t0 = time.perf_counter()
+        solver.train(max_iter=3 + steps)
+        wall = (time.perf_counter() - t0) / steps
+        out[key] = {
+            "steps": steps, "loader_workers": workers, "wall_s_per_step": wall,
+            "train_timer_s_per_step": solver.train_timer.average_time,
+            "load_timer_s_per_step": solver.load_timer.average_time}
+        if key == "solver_stage1":
+            out["solver_trace_stage1"] = solver_window(torch, solver, 5, wall * 1e3)
+            ck = os.path.join(root, "ckpt_timing")
+            t0 = time.perf_counter()
+            m.ckpt.save_checkpoint_background(ck, solver.state, solver.state.step)
+            blocking = time.perf_counter() - t0
+            m.ckpt.wait_for_checkpoints()
+            out["checkpoint_background_ms"] = {
+                "blocking": blocking * 1e3,
+                "total": (time.perf_counter() - t0) * 1e3,
+                "state_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                   for d, _, fs in os.walk(ck) for f in fs)}
+        del solver
+        torch.cuda.empty_cache()
+
+    x = torch.from_numpy(np.random.RandomState(1).rand(
+        1, cfg.image_size, cfg.image_size, 3).astype(np.float32)).to(device)
+    cuts, device_cuts = {}, {}
+    with torch.no_grad():
+        for stage in m.STOP_STAGES + (None,):
+            net = m.DISYolo(cfg, stop_stage=stage).to(device).eval()
+            net.load_state_dict(state_dict)
+            # wall of dependent calls (the host's launches included), and
+            # device time alone (the same forward replayed as a CUDA graph)
+            cuts[stage or "full"] = m.chain_scan_time(net, x, n=30, repeats=7)
+            try:
+                device_cuts[stage or "full"] = graph_ms(torch, lambda: net(x),
+                                                        n=5, reps=10)
+            except RuntimeError as e:        # a forward that cannot be captured
+                device_cuts[stage or "full"] = f"not measured: {e}"[:200]
+            del net
+
+    def by_stage(cum):
+        names = list(cum)
+        if any(isinstance(v, str) for v in cum.values()):
+            return "not measured"
+        return {n: cum[n] - (cum[names[i - 1]] if i else 0.0)
+                for i, n in enumerate(names)}
+
+    out["forward_ms_b1_cumulative"] = cuts
+    out["forward_ms_b1_by_stage"] = by_stage(cuts)
+    out["forward_device_ms_b1_cumulative"] = device_cuts
+    out["forward_device_ms_b1_by_stage"] = by_stage(device_cuts)
+    return out
 
 def nms_case(torch, gen, b, k):
     """Score-sorted candidates: clustered overlapping boxes, 3 classes,
@@ -1329,6 +1721,32 @@ def main() -> None:
     print("eval path: " + json.dumps(eval_record), flush=True)
     print(f"eval path done at {time.time() - t_start:.0f} s", flush=True)
 
+    # the training loop: cli train stage 1 -> stage 2 -> resume over a
+    # split written as P6 (read without OpenCV or PIL), under build/
+    sol = solver_modules()
+    build_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_root, exist_ok=True)
+    sroot = tempfile.mkdtemp(prefix="solver_smoke_", dir=build_root)
+    atexit.register(shutil.rmtree, sroot, True)
+    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
+    cuda_assembly.extract_planes_cuda.launches = 0
+    cuda_nms.nms_cuda.launches = 0
+    solver_record, solver_runs = solver_phase(np, torch, sol, sroot)
+    torch.cuda.synchronize()
+    solver_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
+                       "K2": cuda_nms.nms_cuda.launches,
+                       "K3": cuda_assembly.assemble_bwd_cuda.launches,
+                       "K4": cuda_assembly.extract_planes_cuda.launches}
+    print(f"Solver path launches: {solver_launches}", flush=True)
+    need(solver_launches["K1"] > 0 and solver_launches["K3"] > 0,
+         f"a kernel of the Solver's path never launched: {solver_launches}")
+    solver_cfg = solver_runs[0].cfg.replace(output_dir=sroot)
+    del solver_runs
+    torch.cuda.empty_cache()
+    print("Solver run: " + json.dumps(solver_record), flush=True)
+    print(f"Solver run done at {time.time() - t_start:.0f} s", flush=True)
+
     # ---- phase 4: timing ----------------------------------------------
     timings = {}
     for b in (1, 2):
@@ -1367,6 +1785,15 @@ def main() -> None:
              "device_idle_share": v["device_idle_share"],
              "kernel_launches_per_call": v["kernel_launches_per_call"]}
          for k, v in stage1_traces.items()}), flush=True)
+
+    # the training loop: loader, Solver steps, checkpoint, forward cuts
+    solver_times = solver_timing_run(np, torch, sol, sroot, solver_cfg, model.state_dict())
+    for key in ("solver_stage1", "solver_stage2", "solver_stage1_loader_workers4"):
+        t = solver_times[key]
+        print(f"{key} B=2: wall {t['wall_s_per_step']:.4f} s/step, "
+              f"train_timer {t['train_timer_s_per_step']:.4f}, load_timer "
+              f"{t['load_timer_s_per_step']:.4f} s/step; {smi_line}", flush=True)
+    print("Solver timing: " + json.dumps(solver_times), flush=True)
 
     # the eval sweep, s/image per route: device predict and host post
     eval_sweep = eval_timing(em, *eval_ctx)
@@ -1605,7 +2032,8 @@ def main() -> None:
         by_path = {"serving": launches.get(name, 0),
                    "training": train_launches.get(name, 0),
                    "serving_graphs": graph_launches[name],
-                   "eval": eval_launches[name]}
+                   "eval": eval_launches[name],
+                   "solver": solver_launches[name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
@@ -1676,6 +2104,9 @@ def main() -> None:
                        "eval_path": eval_record, "eval_sweep": eval_sweep,
                        "eval_scoring": eval_scoring,
                        "trace_train_step_stage1": stage1_traces,
+                       "launches_solver_path": solver_launches,
+                       "solver_run": solver_record,
+                       "solver_timing": solver_times,
                        "seconds": time.time() - t_start,
                        "kernels": kernels},
                       f, indent=1)

@@ -6,10 +6,13 @@ of polygons of ``type`` 'out' (filled True) or 'in' (interior hole
 filled False), applied in order, and every polygon's vertex pixels are
 always set True, so a hole's rim stays part of the mask.
 
-One fill engine: the numpy even-odd scanline over pixel centers (the
-JAX package's ``engine="numpy"`` and its parity oracle).  Its native C++
-engine comes with the port of ``native/datapath.cc``; cv2 is not used
-(the card's machine has no OpenCV).
+Two fill engines with the same semantics, bit for bit: ``numpy``, the
+even-odd scanline over pixel centers (the JAX package's
+``engine="numpy"`` and the parity oracle; the default here, as the
+evaluation path uses it), and ``native``, the C++ fill of
+``native/datapath.cc`` built with g++ at first use (the training loader's
+engine; a failed build raises).  cv2 is not used: the card's machine has
+no OpenCV.
 """
 
 from __future__ import annotations
@@ -73,13 +76,27 @@ def _set_boundary(mask: np.ndarray, xs, ys) -> None:
     mask[ys, xs] = True
 
 
-def instance_mask(polygons: List[Dict], h: int, w: int) -> np.ndarray:
+ENGINES = ("numpy", "native")
+
+
+def fill_polygon(xs, ys, h: int, w: int, engine: str = "numpy") -> np.ndarray:
+    """One polygon's bool mask [h, w] by ``engine`` (``ENGINES``)."""
+    if engine == "numpy":
+        return fill_polygon_scanline(np.asarray(xs), np.asarray(ys), h, w)
+    if engine == "native":
+        from dis_yolo_tpu_torch import native
+        return native.fill_polygon(xs, ys, h, w).astype(bool)
+    raise ValueError(f"unknown fill engine {engine!r}; one of {ENGINES}")
+
+
+def instance_mask(polygons: List[Dict], h: int, w: int,
+                  engine: str = "numpy") -> np.ndarray:
     """One instance (a list of {'type', 'all_points_x', 'all_points_y'})
     -> bool mask [h, w]."""
     m = np.zeros((h, w), dtype=bool)
     for poly in polygons:
         xs, ys = poly["all_points_x"], poly["all_points_y"]
-        filled = fill_polygon_scanline(np.asarray(xs), np.asarray(ys), h, w)
+        filled = fill_polygon(xs, ys, h, w, engine)
         if poly["type"] == "out":
             m |= filled
         else:                       # 'in': interior hole, rim stays on
@@ -89,11 +106,11 @@ def instance_mask(polygons: List[Dict], h: int, w: int) -> np.ndarray:
 
 
 def instance_masks(all_polygons: List[List[Dict]], h: int, w: int,
-                   max_instances: int) -> np.ndarray:
+                   max_instances: int, engine: str = "numpy") -> np.ndarray:
     """Padded stack [max_instances, h, w] of instance masks."""
     out = np.zeros((max_instances, h, w), dtype=bool)
     for i, polys in enumerate(all_polygons[:max_instances]):
-        out[i] = instance_mask(polys, h, w)
+        out[i] = instance_mask(polys, h, w, engine)
     return out
 
 

@@ -17,6 +17,7 @@ import numpy as np
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.data.augment import resize_bilinear
+from dis_yolo_tpu_torch.data.image_io import read_image
 
 
 def letterbox_image(image_rgb: np.ndarray,
@@ -45,10 +46,9 @@ class DefectValData:
     """A split's images, all loaded into memory at once.
 
     Reads ``<dataset>/<phase>/cache/{ground_truth_cache.pkl,<phase>.txt}``
-    and decodes ``images/<stem>.jpg`` with OpenCV, imported when ``get``
-    runs: where OpenCV is missing, ``get`` raises (there is no other JPEG
-    decoder to fall back to).  Letterbox a split decoded elsewhere with
-    ``letterbox_image``.
+    and each ``images/<stem>.jpg`` with ``data.image_io.read_image``: a
+    binary PPM (whatever its name) is read in numpy, anything else needs
+    OpenCV, and ``get`` raises where it is missing.
     """
 
     def __init__(self, cfg: DISYoloConfig, phase: str = "val"):
@@ -71,23 +71,12 @@ class DefectValData:
 
     def get(self):
         """(images [N, size, size, 3] float32, names, windows [N, 4])."""
-        try:
-            import cv2
-        except ImportError as e:
-            raise RuntimeError(
-                "DefectValData decodes JPEGs with OpenCV, which is not "
-                "installed; decode the images elsewhere and letterbox them "
-                "with letterbox_image") from e
         size = self.cfg.test_size
         n = len(self.image_paths)
         images = np.zeros((n, size, size, 3), np.float32)
         windows = np.zeros((n, 4), np.float32)
         names = []
         for i, path in enumerate(self.image_paths):
-            bgr = cv2.imread(path)
-            if bgr is None:
-                raise FileNotFoundError(f"cannot read image {path}")
-            rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-            images[i], windows[i] = letterbox_image(rgb, size)
+            images[i], windows[i] = letterbox_image(read_image(path), size)
             names.append(os.path.splitext(os.path.basename(path))[0])
         return images, names, windows

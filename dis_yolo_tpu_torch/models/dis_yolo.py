@@ -19,11 +19,20 @@ The serving graphs choose each conv_bn layer as the JAX package does:
 decoder's fusion nodes 77/80/83 as ``CommutedConcatConvBN`` with
 ``cfg.decoder_commute`` outside the deploy and quant graphs).
 ``cfg.s2d_stem`` replaces conv1/conv2 by the space-to-depth stem
-(``models/s2d.py``).  ``remat`` is refused by ``cfg.check_ported()``;
-``stop_stage`` is not an argument here.
+(``models/s2d.py``).  ``remat`` is refused by ``cfg.check_ported()``.
+
+``stop_stage`` is a profiling probe, as in the JAX package: the forward
+returns early at a named cut (``STOP_STAGES``: after the stem, the
+128-, 256- and 512-channel stages, the backbone, or the heads: then the
+stride-8 tower's last 1x1 output), as a 1-tuple holding that activation
+NHWC in the compute dtype, so timings of the truncated forwards itemize
+where a forward's time goes.  None (the default) is the full network;
+training never sets it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -37,6 +46,7 @@ from dis_yolo_tpu_torch.models.s2d import space_to_depth
 
 # the decoder's fusion nodes: ConvBN1x1(concat([skip, up2(small)]))
 _DECODER_FUSION = (77, 80, 83)
+STOP_STAGES = ("stem", "c128", "c256", "c512", "backbone", "heads")
 
 
 def _layer_specs(cfg: DISYoloConfig):
@@ -100,10 +110,14 @@ class DISYolo(nn.Module):
     (m = ``cfg.mask_stride``)
     """
 
-    def __init__(self, cfg: DISYoloConfig):
+    def __init__(self, cfg: DISYoloConfig, stop_stage: Optional[str] = None):
         super().__init__()
         cfg.check_ported()
+        if stop_stage is not None and stop_stage not in STOP_STAGES:
+            raise ValueError(f"stop_stage must be one of {STOP_STAGES} or "
+                             f"None, got {stop_stage!r}")
         self.cfg = cfg
+        self.stop_stage = stop_stage
         dtype = getattr(torch, cfg.compute_dtype)
         serving = cfg.deploy or cfg.quant
         self.commute = cfg.decoder_commute and not serving
@@ -137,6 +151,10 @@ class DISYolo(nn.Module):
             return self._c(idx)(skip, small)
         return self._c(idx)(torch.cat([skip, upsample2x_nearest(small)], 1))
 
+    def _stop(self, stage: str, x: torch.Tensor):
+        """(x as NHWC,) when the forward stops at ``stage``, else None."""
+        return (x.permute(0, 2, 3, 1),) if self.stop_stage == stage else None
+
     @staticmethod
     def _head(y: torch.Tensor, a: int) -> torch.Tensor:
         b, _, h, w = y.shape
@@ -160,23 +178,33 @@ class DISYolo(nn.Module):
             x = c(1)(x)
             skip1 = x                                 # 1/1, 32ch
             x = c(2)(x)
+        if (cut := self._stop("stem", x)) is not None:
+            return cut
         x = x + c(4)(c(3)(x))
         skip2 = x                                     # 1/2, 64ch
         x = c(5)(x)
         x = x + c(7)(c(6)(x))
         x = x + c(9)(c(8)(x))
         skip3 = x                                     # 1/4, 128ch
+        if (cut := self._stop("c128", x)) is not None:
+            return cut
         x = c(10)(x)
         for i in range(8):
             x = x + c(2 * i + 12)(c(2 * i + 11)(x))
         skip4 = x                                     # 1/8, 256ch
+        if (cut := self._stop("c256", x)) is not None:
+            return cut
         x = c(27)(x)
         for i in range(8):
             x = x + c(2 * i + 29)(c(2 * i + 28)(x))
         skip5 = x                                     # 1/16, 512ch
+        if (cut := self._stop("c512", x)) is not None:
+            return cut
         x = c(44)(x)
         for i in range(4):
             x = x + c(2 * i + 46)(c(2 * i + 45)(x))
+        if (cut := self._stop("backbone", x)) is not None:
+            return cut
 
         # ---- head 1: stride 32 ----
         for i in range(53, 58):
@@ -194,6 +222,8 @@ class DISYolo(nn.Module):
         for i in range(70, 74):
             x = c(i)(x)
         raw_s8 = self._head(c(75)(c(74)(x)), a)
+        if (cut := self._stop("heads", x)) is not None:
+            return cut
 
         # ---- mask decoder: stride 8 -> cfg.mask_stride score maps ----
         m = self._up_concat_cbn(77, skip3, c(76)(x))

@@ -1,11 +1,65 @@
-"""Runtime helpers (PyTorch counterpart of the parts of
-``dis_yolo_tpu/utils/runtime.py`` the serving path needs)."""
+"""Runtime helpers (PyTorch counterpart of ``dis_yolo_tpu/utils/runtime.py``):
+the device batch prefetch of the training loop and the detection
+threshold calibration of the benchmarks.  (JAX's persistent compilation
+cache has no counterpart: the port compiles no graphs.)"""
 
 from __future__ import annotations
 
-from typing import Optional
+import collections
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
+import torch
+
+
+def device_prefetch(batches: Iterable[Dict[str, np.ndarray]], size: int = 2,
+                    device=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yield host batches (dicts of numpy arrays) as tensors on ``device``,
+    ``size`` transfers ahead of the consumer.
+
+    On CUDA each array is copied into pinned memory and sent with
+    ``non_blocking=True`` on a side stream; the consuming stream waits on
+    that copy's event, and each tensor is marked as used on it
+    (``record_stream``), so the allocator does not hand its memory out
+    again while the consumer's kernels may still read it.  The pinned
+    buffers are the caching host allocator's: it holds each one until
+    its copy is done.  With ``device="cpu"`` it is a plain
+    ``torch.from_numpy`` pass-through.
+    """
+    from dis_yolo_tpu_torch.models.api import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        for batch in batches:
+            yield {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in batch.items()}
+        return
+    side = torch.cuda.Stream(device=dev)
+
+    def put(batch):
+        with torch.cuda.stream(side):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                   .to(dev, non_blocking=True) for k, v in batch.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    ahead: collections.deque = collections.deque()
+    it = iter(batches)
+    for batch in it:
+        ahead.append(put(batch))
+        if len(ahead) >= size:
+            break
+    while ahead:
+        out, done = ahead.popleft()
+        for batch in it:
+            ahead.append(put(batch))
+            break
+        consumer = torch.cuda.current_stream(dev)
+        consumer.wait_event(done)
+        for t in out.values():
+            t.record_stream(consumer)
+        yield out
 
 
 def calibrate_threshold(model, images, cfg,

@@ -55,7 +55,14 @@ def test_port_imports_no_jax():
                    "ops/cuda_assembly.py",       # K4's wrapper lives here
                    "eval/sweep.py", "eval/map_eval.py", "eval/voc_eval.py",
                    "eval/postprocess.py", "data/val_data.py",
-                   "data/rasterize.py", "data/augment.py"):
+                   "data/rasterize.py", "data/augment.py",
+                   # the training loop
+                   "data/dataset.py", "data/image_io.py",
+                   "data/preprocess.py", "data/synthetic.py",
+                   "native/__init__.py", "train/checkpoint.py",
+                   "train/solver.py", "train/tensorbundle.py",
+                   "utils/timer.py", "utils/metrics_log.py",
+                   "utils/profiling.py", "utils/runtime.py", "cli.py"):
         assert port / module in files, module
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -269,3 +276,59 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
         assert path.parent == _build.BUILD_DIR and name in path.name
         assert (_build.CSRC / f"{name}.cu").exists()
     assert _build.load.cache_info().currsize == 0
+
+
+def test_solver_path_raises_without_cuda(monkeypatch, tmp_path):
+    """The device prefetch and the Solver run on the card unless given
+    device='cpu'; without a card they raise."""
+    from dis_yolo_tpu_torch.train.solver import Solver
+    from dis_yolo_tpu_torch.utils.runtime import device_prefetch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    batch = {"images": np.zeros((1, 4, 4, 3), np.uint8)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(device_prefetch(iter([batch])))
+    got = next(device_prefetch(iter([batch]), device="cpu"))
+    assert got["images"].device.type == "cpu"
+    cfg = DISYoloConfig(image_size=64, output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Solver(cfg, data=object())
+    solver = Solver(cfg, data=object(), device="cpu")
+    assert solver.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Solver(cfg, data=object(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
+        Solver(cfg.replace(steps_per_dispatch=2), data=object(),
+               device="cpu")
+
+
+def test_reader_and_native_build_raise_not_fall_back(monkeypatch, tmp_path):
+    """A file that is not P6 needs OpenCV: without it the reader raises;
+    a failing g++ build of the native fill raises."""
+    import builtins
+    import subprocess
+
+    from dis_yolo_tpu_torch import native
+    from dis_yolo_tpu_torch.data import image_io, rasterize
+
+    path = tmp_path / "a.jpg"
+    path.write_bytes(b"\xff\xd8\xff\xe0 not a PPM")
+    real_import = builtins.__import__
+
+    def no_cv2(name, *a, **kw):
+        if name == "cv2":
+            raise ImportError("no cv2")
+        return real_import(name, *a, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_cv2)
+    with pytest.raises(RuntimeError, match="OpenCV"):
+        image_io.read_image(str(path))
+    image_io.write_ppm(str(path), np.full((2, 3, 3), 7, np.uint8))
+    assert (image_io.read_image(str(path)) == 7).all()
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native.subprocess, "run", lambda *a, **kw:
+                        subprocess.CompletedProcess(a, 1, "", "bad source"))
+    with pytest.raises(RuntimeError, match="build failed"):
+        rasterize.fill_polygon([0, 4, 4], [0, 0, 4], 8, 8, engine="native")
