@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and evaluation paths on
-one CUDA card and check them.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation and export
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -125,6 +125,35 @@ Phases (any failure exits non-zero before the last line is printed):
   (``utils.profiling.chain_scan_time``) and as device time (CUDA-graph
   replays).
 
+  The serving export (after the Solver in phase 3, timed in phase 4):
+  the deploy graph exported (``export.export_predict``) at B=1 and at a
+  dynamic batch, the deploy graph with ``use_pallas_nms`` at B=1 and
+  the int8 graph at B=1, at 576^2 from the seed-7 weights, each saved
+  and loaded back in a fresh process (``chip_smoke.py --artifact-worker
+  SPEC``) that imports torch and ``export.load_artifact`` only, with
+  K1's and K2's plain versions replaced by stubs that raise; it fails
+  unless no module of the model code was imported there, each call
+  launched K1 once (and K2 once where it is on), and each output (B=1,
+  2, 3 for the dynamic batch) matches the live predict of the same
+  graph (class column equal, detections within rtol 1e-5 / atol 1e-6,
+  masks within atol 5e-4).  Then ``python -m dis_yolo_tpu_torch.cli``
+  on the Solver's val images: ``infer`` with the Solver's step-6
+  checkpoint, ``infer`` with a checkpoint of the seed-7 weights
+  against ``infer --artifact`` of its ``export --symbolic-batch``, at a
+  threshold where their two graphs agree here (the same detection count
+  per image, each equal to its graph's here), and ``verify-gt``; every
+  overlay is a PNG of its image's size.  Phase 4 (``--out`` key
+  ``export_timing``): export s and artifact MB per artifact, the
+  loaded artifacts' predict ms at B=1 and B=2 (CUDA events, in a fresh
+  process, with a profiler window of the host's operators at B=1)
+  beside the live predict of the same graph; the deploy artifact at B=1
+  also loaded in the main process, and its program as ``torch.export``
+  leaves it (with the assert nodes the export drops), alternating with
+  the live predict, each with a profiler window of its host operators;
+  and
+  ``infer`` ms per image end to end (host clock) over 20 images, the val
+  images copied 5 times, by the checkpoint and the artifact routes.
+
 Phase 1 prints, and ``--out`` keeps under ``ptxas``, each kernel's
 registers and spill bytes from its ``nvcc -Xptxas -v`` log; the run fails
 at its end if K1 or K2 has a stack frame or spills.  K2's forced general
@@ -136,8 +165,9 @@ launch; ``--out`` keeps the sweeps under ``k2_sweep`` and
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
 Each kernel's ``launches`` is the sum over the serving path, the
-training path, the serving graphs' path, the eval path and the Solver's
-path, and ``launches_by_path``
+training path, the serving graphs' path, the eval path, the Solver's
+path and the export path (its live predicts here and the loaded
+artifacts' calls in their process), and ``launches_by_path``
 holds each path's own count (each read from its run, with the counters
 set to 0 just before it).  Only K4 has a single PyTorch call computing
 the same function (``torch.empty(k*k,S,S).copy_(sm.permute(2,0,1))``);
@@ -308,20 +338,20 @@ def random_boxes(torch, gen, b, d, n_pad):
     return boxes
 
 
-def check_assembly(torch, cuda_assembly, gen, b, s, k, d, n_pad):
+def check_assembly(torch, custom_ops, gen, b, s, k, d, n_pad):
     """K1 vs its plain version on the card; returns max |diff| of probs."""
     sm = torch.randn((b, s, s, k * k), generator=gen).cuda()
     bx = random_boxes(torch, gen, b, d, n_pad).cuda()
-    got = cuda_assembly.assemble_masks_batch_cuda(sm, bx, k, apply_sigmoid=False)
-    want = cuda_assembly.assemble_masks_batch_plain(sm, bx, k, apply_sigmoid=False)
+    got = custom_ops.assemble_masks_batch_cuda(sm, bx, k, apply_sigmoid=False)
+    want = custom_ops.assemble_masks_batch_plain(sm, bx, k, apply_sigmoid=False)
     torch.cuda.synchronize()
     need(torch.equal(got, want), f"K1 logits not bit-exact (S={s} k={k})")
     # the plain version on the card against the plain version on the CPU
-    need(torch.equal(want.cpu(), cuda_assembly.assemble_masks_batch_plain(
+    need(torch.equal(want.cpu(), custom_ops.assemble_masks_batch_plain(
         sm.cpu(), bx.cpu(), k, apply_sigmoid=False)),
         f"K1 plain logits differ between card and CPU (S={s} k={k})")
-    got = cuda_assembly.assemble_masks_batch_cuda(sm, bx, k)
-    want = cuda_assembly.assemble_masks_batch_plain(sm, bx, k)
+    got = custom_ops.assemble_masks_batch_cuda(sm, bx, k)
+    want = custom_ops.assemble_masks_batch_plain(sm, bx, k)
     torch.cuda.synchronize()
     inside = want != 0
     need(torch.equal(got != 0, inside), f"K1 support differs (S={s} k={k})")
@@ -360,8 +390,8 @@ def edited_px_boxes(torch, gen, b, r, s, edit):
     return boxes
 
 
-def check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen, b, s, k, r,
-                       n_zero, check_grad, edit=None):
+def check_assembly_bwd(torch, cuda_assembly, custom_ops, mask_assembly, gen, b, s,
+                       k, r, n_zero, check_grad, edit=None):
     """K3 bit-exact against its plain version, K1's pixel-box mode
     bit-exact, and (``check_grad``) the training assembly's score-map
     gradient against autograd through the plain gather.  The ROIs are
@@ -381,9 +411,9 @@ def check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen, b, s, k, r,
     if edit == "top":
         need(not bool(got[:, s // 2:].any()), f"K3 rows below every ROI not zero ({tag})")
     sm = torch.randn((b, s, s, k * k), generator=gen).cuda()
-    fwd = cuda_assembly.assemble_masks_batch_cuda(sm, boxes, k, apply_sigmoid=False,
+    fwd = custom_ops.assemble_masks_batch_cuda(sm, boxes, k, apply_sigmoid=False,
                                                   pixel_boxes=True)
-    need(torch.equal(fwd, cuda_assembly.assemble_masks_batch_plain(
+    need(torch.equal(fwd, custom_ops.assemble_masks_batch_plain(
         sm, boxes, k, apply_sigmoid=False, pixel_boxes=True)),
         f"K1 pixel-box logits not bit-exact ({tag})")
     rel = 0.0
@@ -425,7 +455,7 @@ def check_extract(torch, cuda_assembly, gen, b, s, k, dtype, offset=0):
     return float((got - want).abs().max())
 
 
-def check_planes(torch, cuda_assembly, gen, b, s, k, d, n_pad):
+def check_planes(torch, cuda_assembly, custom_ops, gen, b, s, k, d, n_pad):
     """K1 on channel planes [B,k*k,S,S] equals K1 on the NHWC map bit for
     bit (logits and sigmoid), and the single-image ``use_extract`` route
     (K4 + K1 planes) equals the default route on bf16 and f32 maps."""
@@ -433,9 +463,9 @@ def check_planes(torch, cuda_assembly, gen, b, s, k, d, n_pad):
     bx = random_boxes(torch, gen, b, d, n_pad).cuda()
     planes = sm.permute(0, 3, 1, 2).contiguous()
     for sig in (False, True):
-        got = cuda_assembly.assemble_masks_batch_cuda(planes, bx, k, sig,
+        got = custom_ops.assemble_masks_batch_cuda(planes, bx, k, sig,
                                                       planes=True)
-        want = cuda_assembly.assemble_masks_batch_cuda(sm, bx, k, sig)
+        want = custom_ops.assemble_masks_batch_cuda(sm, bx, k, sig)
         need(torch.equal(got, want), f"K1 planes != NHWC (S={s} k={k})")
     for dtype in (torch.bfloat16, torch.float32):
         one = sm[0].to(dtype)
@@ -486,10 +516,12 @@ def norm_mae(got, want):
     return float((got - want).abs().mean() / (want.abs().mean() + 1e-6))
 
 
-def profile_window(torch, fn, calls, wall_ms):
+def profile_window(torch, fn, calls, wall_ms, host_ops=False):
     """One torch.profiler window of ``calls`` calls of ``fn``: device busy
     time per call, its idle share against ``wall_ms`` (the unprofiled
-    time per call) and the top kernels."""
+    time per call) and the top kernels; with ``host_ops`` also the host's
+    operator calls per call, their summed self time and the ops with the
+    most self time (what the host spends between the device's kernels)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -505,7 +537,18 @@ def profile_window(torch, fn, calls, wall_ms):
         kind_ = kernel_kind(e.key)
         by_kind[kind_] = by_kind.get(kind_, 0.0) + e.self_device_time_total / calls
         top[e.key[:100]] = top.get(e.key[:100], 0.0) + e.self_device_time_total / calls
-    return {"wall_us_per_call_profiled": wall_us,
+    host = {}
+    if host_ops:
+        cpu = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+        cpu.sort(key=lambda e: -e.self_cpu_time_total)
+        host = {"host_op_calls_per_call": sum(e.count for e in cpu) / calls,
+                "host_self_us_per_call": sum(e.self_cpu_time_total
+                                             for e in cpu) / calls,
+                "top_host_ops_us_and_calls_per_call": {
+                    e.key[:80]: [e.self_cpu_time_total / calls, e.count / calls]
+                    for e in cpu[:12]}}
+    return {**host, "wall_us_per_call_profiled": wall_us,
             "device_busy_us_per_call": busy_us if device else "not measured",
             # the profiler slows the host, so the idle share is taken
             # against the unprofiled time of phase 4
@@ -1116,6 +1159,451 @@ def solver_timing_run(np, torch, m, root, cfg, state_dict, device="cuda", steps=
     out["forward_device_ms_b1_by_stage"] = by_stage(device_cuts)
     return out
 
+# the serving export: four artifacts of the serving graphs at 576^2, each
+# with the batches it serves, and the CLI's commands on the Solver's split
+EXPORT_BATCHES = (1, 2, 3)
+INFER_LINE = re.compile(r"(.+): (\d+) detections -> (.+) \(([\d.]+) ms\)$")
+
+
+def png_pixels(np, path):
+    """Decode a PNG written by ``data.image_io.write_png`` (8-bit RGB, no
+    row filter) with zlib, checking each chunk's CRC: the card's machine
+    has no image library."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    need(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        need(crc == zlib.crc32(kind + body) & 0xFFFFFFFF, f"{path}: bad CRC")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    need(bool((rows[:, 0] == 0).all()), f"{path}: unexpected row filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+# thresholds tried, in order, for the commands' check: the first at which
+# infer's BN-folded graph and export's deploy graph (two roundings of the
+# same function in bf16) keep the same number of instances on every image
+INFER_THRESHOLDS = (0.25, 0.2, 0.15, 0.1, 0.05)
+INFER_REPEATS = 5       # phase 4 times `cli infer` over the val images x 5
+
+
+def export_modules():
+    """The port's serving export, as one namespace."""
+    from dis_yolo_tpu_torch import export as exp
+    from dis_yolo_tpu_torch.data.image_io import read_image
+    from dis_yolo_tpu_torch.data.val_data import letterbox_image
+    from dis_yolo_tpu_torch.eval.postprocess import detections_to_original
+    from dis_yolo_tpu_torch.models import fold
+    from dis_yolo_tpu_torch.ops import custom_ops
+    from dis_yolo_tpu_torch.train import checkpoint as ckpt
+    return types.SimpleNamespace(**locals())
+
+
+def command_graphs(np, m, api, base_cfg, ckpt, val_dir, size):
+    """What ``cli infer --checkpoint`` and an exported artifact serve,
+    computed here from the same checkpoint: infer's BN-folded graph and
+    export's deploy graph, each over the val images as the command does
+    (read, letterbox, predict, paste), at each of ``INFER_THRESHOLDS``
+    until the two keep as many instances per image (and some).  Returns
+    (the threshold, {threshold: {"folded": counts, "deploy": counts}})."""
+    folded = api.init_model(base_cfg, 0)
+    m.ckpt.restore_weights(ckpt, folded)
+    sd = folded.state_dict()
+    deploy = api.create_model(base_cfg.replace(deploy=True))
+    deploy.load_state_dict(m.fold.deploy_variables(sd))
+    folded.load_state_dict(m.fold.fold_batchnorm(sd))
+    inputs = []
+    for name in sorted(os.listdir(val_dir)):
+        rgb = m.read_image(os.path.join(val_dir, name))
+        inputs.append((os.path.splitext(name)[0], rgb.shape[:2],
+                       *m.letterbox_image(rgb, size)))
+
+    def counts(model, t):
+        out = {}
+        for stem, (h, w), canvas, window in inputs:
+            dets, masks = api.predict(model, canvas[None], window[None], t)
+            out[stem] = len(m.detections_to_original(
+                dets[0].cpu().numpy(), masks[0].cpu().numpy(), h, w, size))
+        return out
+
+    ladder = {}
+    for t in INFER_THRESHOLDS:
+        ladder[repr(t)] = {"folded": counts(folded, t), "deploy": counts(deploy, t)}
+        if ladder[repr(t)]["folded"] == ladder[repr(t)]["deploy"] \
+                and sum(ladder[repr(t)]["folded"].values()) > 0:
+            return t, ladder
+    fail(f"the folded and deploy graphs disagree at every threshold: {ladder}")
+
+
+def artifact_worker(spec_path: str) -> None:
+    """``chip_smoke.py --artifact-worker SPEC``: a fresh process that
+    imports torch and ``export.load_artifact`` (which imports only the
+    custom operators), loads each artifact of the spec and runs it on the
+    card at its batches, with K1's and K2's plain versions replaced by
+    stubs that raise.  Saves the outputs to ``spec["out"]`` and prints one
+    JSON line: per artifact and batch the launches of K1 and K2 read from
+    their counters, with ``spec["time"]`` the predict ms (CUDA events),
+    and which modules of the port's model code were imported (none)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dis_yolo_tpu_torch.export import load_artifact
+    from dis_yolo_tpu_torch.ops import custom_ops
+
+    def stub(*args, **kwargs):
+        raise AssertionError("a plain version ran inside a loaded artifact")
+
+    custom_ops.assemble_masks_batch_plain = stub
+    custom_ops.nms_plain = stub
+    with open(spec_path) as f:
+        spec = json.load(f)
+    data = np.load(spec["inputs"])
+    inputs = {b: (torch.from_numpy(data[f"images{b}"]).cuda(),
+                  torch.from_numpy(data[f"windows{b}"]).cuda())
+              for b in EXPORT_BATCHES}
+    k1, k2 = custom_ops.assemble_masks_batch_cuda, custom_ops.nms_cuda
+    report, outs = {}, {}
+    for art in spec["artifacts"]:
+        t0 = time.perf_counter()
+        run, meta = load_artifact(art["path"])
+        rec = {"load_s": time.perf_counter() - t0, "in_shapes": meta["in_shapes"],
+               "calls": {}}
+        for b in art["batches"]:
+            before = (k1.launches, k2.launches)
+            dets, masks = run(*inputs[b])
+            torch.cuda.synchronize()
+            rec["calls"][str(b)] = {"K1": k1.launches - before[0],
+                                    "K2": k2.launches - before[1]}
+            outs[f"{art['name']}_b{b}_dets"] = dets.cpu().numpy()
+            outs[f"{art['name']}_b{b}_masks"] = masks.cpu().numpy()
+            if spec["time"] and b <= 2:
+                rec[f"predict_ms_b{b}"] = cuda_ms(torch, lambda: run(*inputs[b]), 20)
+            if spec["time"] and b == 1:
+                rec["profile_b1"] = profile_window(
+                    torch, lambda: run(*inputs[1]), 5, rec["predict_ms_b1"],
+                    host_ops=True)
+        report[art["name"]] = rec
+        del run
+    np.savez(spec["out"], **outs)
+    report["model_modules"] = sorted(m for m in sys.modules
+                                     if m.startswith("dis_yolo_tpu_torch.models"))
+    report["jax_imported"] = "jax" in sys.modules or "dis_yolo_tpu" in sys.modules
+    report["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(report), flush=True)
+
+
+def run_worker(np, root, specs, images, windows, timed, timeout=900):
+    """Run ``artifact_worker`` in a fresh process over ``specs`` [(name,
+    path, batches)]; returns (its report, its outputs, wall s)."""
+    data = {}
+    for b in EXPORT_BATCHES:
+        data[f"images{b}"] = images[b].cpu().numpy()
+        data[f"windows{b}"] = windows[b].cpu().numpy()
+    np.savez(os.path.join(root, "inputs.npz"), **data)
+    spec = {"inputs": os.path.join(root, "inputs.npz"),
+            "out": os.path.join(root, "outputs.npz"), "time": timed,
+            "artifacts": [{"name": n, "path": p, "batches": list(bs)}
+                          for n, p, bs in specs]}
+    spec_path = os.path.join(root, "worker.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--artifact-worker", spec_path], capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.time() - t0
+    need(proc.returncode == 0, "artifact worker failed:\n" + proc.stdout[-3000:]
+         + proc.stderr[-6000:])
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    outs = dict(np.load(spec["out"]))
+    os.remove(spec["out"])
+    return report, outs, wall
+
+
+def run_cli(args, timeout=900):
+    """``python -m dis_yolo_tpu_torch.cli ARGS`` from the repo root ->
+    (stdout, wall s); fails on a non-zero exit."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "dis_yolo_tpu_torch.cli", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.time() - t0
+    need(proc.returncode == 0, f"cli {args[0]} failed:\n" + proc.stdout[-3000:]
+         + proc.stderr[-6000:])
+    return proc.stdout, wall
+
+
+def infer_counts(np, out, out_dir, sizes):
+    """Parse ``cli infer``'s lines -> ({stem: detections}, [ms per image]);
+    each overlay ``<stem>.png`` decodes to its input's size."""
+    counts, ms = {}, []
+    for line in out.splitlines():
+        m = INFER_LINE.match(line)
+        if m:
+            stem = os.path.splitext(os.path.basename(m.group(1)))[0]
+            counts[stem] = int(m.group(2))
+            ms.append(float(m.group(4)))
+            need(m.group(3) == os.path.join(out_dir, stem + ".png"),
+                 f"infer wrote {m.group(3)}")
+    need(len(counts) == SOLVER_SPLIT["val"], f"infer: {len(counts)} images")
+    for i in range(SOLVER_SPLIT["val"]):
+        h, w = sizes[i % 2]
+        got = png_pixels(np, os.path.join(out_dir, f"val{i:04d}.png")).shape
+        need(got == (h, w, 3), f"infer overlay val{i:04d}.png: {got}")
+    return counts, ms
+
+
+def compare_artifact(torch, got, want, tag):
+    """Loaded artifact vs live predict: class column and row order equal,
+    detections within rtol 1e-5 / atol 1e-6, masks within atol 5e-4 (the
+    JAX package's export tolerances); returns the largest differences."""
+    (gd, gm), (wd, wm) = (torch.from_numpy(x) for x in got), want
+    need(tuple(gd.shape) == tuple(wd.shape) and tuple(gm.shape) == tuple(wm.shape),
+         f"{tag}: shapes {tuple(gd.shape)} {tuple(gm.shape)}")
+    need(torch.equal(gd[..., 4], wd[..., 4]), f"{tag}: class column differs")
+    need(torch.allclose(gd, wd, rtol=1e-5, atol=1e-6), f"{tag}: detections differ")
+    need(torch.allclose(gm, wm, rtol=0, atol=5e-4), f"{tag}: masks differ")
+    return {"dets_max_abs": float((gd - wd).abs().max()),
+            "masks_max_abs": float((gm - wm).abs().max()),
+            "bit_equal": bool(torch.equal(gd, wd) and torch.equal(gm, wm)),
+            "detections": int((wd[..., 5] > 0).sum())}
+
+
+def export_phase(np, torch, m, api, graphs, g_thresh, images, windows, root,
+                 solver_root, state_dict, size=576):
+    """The serving export at 576^2 on the card: the deploy graph at B=1 and
+    at a dynamic batch (served at 1, 2, 3), the deploy graph with
+    ``use_pallas_nms`` at B=1 and the int8 graph at B=1, each saved and
+    loaded back in a fresh process (``artifact_worker``) and held against
+    the live predict of the same graph; then the commands on the Solver's
+    val images: ``cli infer`` with the Solver's step-6 checkpoint (it
+    runs; its few boxes sit on the one-pixel edge of the degenerate-box
+    drop, so its counts are reported, not compared), and with a
+    checkpoint of the seed-7 weights (the BN-folded graph) against a
+    ``cli export`` artifact of it (the deploy graph), at the first of
+    ``INFER_THRESHOLDS`` where the two graphs keep as many instances per
+    image here: each command's counts equal its graph's and each
+    other's; and ``cli verify-gt`` (one PNG per image, of its size).
+    Every overlay decodes to its image's size.  Returns (record, timing
+    context)."""
+    cfg_b, model_b = graphs["b"]
+    cfg_d, model_d = graphs["d"]
+    arts = [("deploy_b1", cfg_b, model_b, 1, g_thresh["b"], (1,)),
+            ("deploy_dynamic", cfg_b, model_b, "b", g_thresh["b"], EXPORT_BATCHES),
+            ("deploy_k2_b1", cfg_b.replace(use_pallas_nms=True), model_b, 1,
+             g_thresh["b"], (1,)),
+            ("int8_b1", cfg_d, model_d, 1, g_thresh["d"], (1,))]
+    record, specs, live = {"artifacts": {}}, [], {}
+    for name, gcfg, gm, bs, th, batches in arts:
+        t0 = time.time()
+        ep = m.exp.export_predict(gcfg, gm, bs, obj_thresh=th)
+        t1 = time.time()
+        path = os.path.join(root, name)
+        blob = m.exp.save_artifact(ep, path, gcfg, obj_thresh=th)
+        t2 = time.time()
+        code = ep.graph_module.code
+        need("dis_yolo.assemble_masks" in code, f"{name}: K1 is not in the graph")
+        need("_assert_tensor_metadata" not in code, f"{name}: assert nodes left")
+        need(("dis_yolo.nms" in code) == gcfg.use_pallas_nms,
+             f"{name}: K2 in the graph: {'dis_yolo.nms' in code}")
+        # K2 takes the fixpoint loop's place; the fallback stays
+        need(("while_loop" in code) != gcfg.use_pallas_nms and "cond" in code,
+             f"{name}: NMS control flow is not in the graph")
+        record["artifacts"][name] = {
+            "export_s": t1 - t0, "save_s": t2 - t1,
+            "artifact_mb": os.path.getsize(blob) / 1e6,
+            "range_constraints": str(ep.range_constraints)}
+        print(f"export {name}: {t1 - t0:.1f} s + save {t2 - t1:.1f} s, "
+              f"{os.path.getsize(blob) / 1e6:.1f} MB, ranges "
+              f"{ep.range_constraints}", flush=True)
+        del ep
+        specs.append((name, path, batches))
+        for b in batches:
+            raws = api.forward(gm, images[b])
+            live[(name, b)] = [x.cpu() for x in api.predict_from_outputs(
+                gcfg, raws, windows[b], th)]
+    report, outs, wall = run_worker(np, root, specs, images, windows, False)
+    need(report["model_modules"] == [] and not report["jax_imported"],
+         f"the artifact process imported model code: {report['model_modules']}")
+    k2_arts = {n for n, gcfg, *_ in arts if gcfg.use_pallas_nms}
+    worker_launches = {"K1": 0, "K2": 0}
+    for name, _, batches in specs:
+        rec = record["artifacts"][name]
+        rec.update(load_s=report[name]["load_s"], in_shapes=report[name]["in_shapes"],
+                   launches=report[name]["calls"], vs_live={})
+        for b in batches:
+            calls = report[name]["calls"][str(b)]
+            need(calls == {"K1": 1, "K2": int(name in k2_arts)},
+                 f"{name} B={b}: launches {calls}")
+            for kname in worker_launches:
+                worker_launches[kname] += calls[kname]
+            got = (outs[f"{name}_b{b}_dets"], outs[f"{name}_b{b}_masks"])
+            rec["vs_live"][str(b)] = compare_artifact(torch, got, live[(name, b)],
+                                                      f"{name} B={b}")
+        print(f"artifact {name}: loaded in {rec['load_s']:.1f} s, launches "
+              f"{rec['launches']}, vs live {json.dumps(rec['vs_live'])}", flush=True)
+    record["worker_wall_s"] = wall
+    record["worker_launches"] = worker_launches
+    # the commands, on the Solver's split (P6, no OpenCV or PIL)
+    val_dir = os.path.join(solver_root, "val", "images")
+    common = ["--image-size", str(size), "--dataset", solver_root, "--device", "cuda"]
+    cli = {}
+    solver_ckpt = os.path.join(solver_root, "run1", "checkpoint", "step_00000006")
+    out, cli["infer_solver_checkpoint_wall_s"] = run_cli(
+        ["infer", "--images", val_dir, "--out", os.path.join(root, "infer_solver"),
+         "--checkpoint", solver_ckpt, "--threshold", "0.001"] + common)
+    cli["solver_checkpoint_detections"] = infer_counts(
+        np, out, os.path.join(root, "infer_solver"), SOLVER_SIZES)[0]
+    # the seed-7 weights as a checkpoint, served both ways at a threshold
+    # where the two graphs they serve agree
+    ckpt = os.path.join(root, "seed7")
+    os.makedirs(ckpt)
+    torch.save({k: v.cpu() for k, v in state_dict.items()},
+               os.path.join(ckpt, "weights"))
+    thr, ladder = command_graphs(np, m, api, cfg_b.replace(deploy=False), ckpt,
+                                 val_dir, size)
+    print(f"commands' threshold {thr!r}; folded vs deploy graph instances per "
+          f"threshold tried: {json.dumps(ladder)}", flush=True)
+    cli.update(threshold=thr, graphs_by_threshold=ladder)
+    out, cli["infer_checkpoint_wall_s"] = run_cli(
+        ["infer", "--images", val_dir, "--out", os.path.join(root, "infer_ckpt"),
+         "--checkpoint", ckpt, "--threshold", repr(thr)] + common)
+    counts_ckpt, ms_ckpt = infer_counts(np, out, os.path.join(root, "infer_ckpt"),
+                                        SOLVER_SIZES)
+    out, cli["export_wall_s"] = run_cli(
+        ["export", "--out", os.path.join(root, "cli_deploy"), "--checkpoint", ckpt,
+         "--threshold", repr(thr), "--symbolic-batch"] + common)
+    cli["export"] = json.loads(out.strip().splitlines()[-1])
+    here = os.path.dirname(os.path.abspath(__file__))
+    for key in ("artifact", "meta"):
+        cli["export"][key] = os.path.relpath(cli["export"][key], here)
+    out, cli["infer_artifact_wall_s"] = run_cli(
+        ["infer", "--images", val_dir, "--out", os.path.join(root, "infer_art"),
+         "--artifact", os.path.join(root, "cli_deploy")] + common)
+    counts_art, ms_art = infer_counts(np, out, os.path.join(root, "infer_art"),
+                                      SOLVER_SIZES)
+    need(counts_ckpt == ladder[repr(thr)]["folded"],
+         f"infer --checkpoint: {counts_ckpt} instances, its graph here "
+         f"{ladder[repr(thr)]['folded']}")
+    need(counts_art == ladder[repr(thr)]["deploy"],
+         f"infer --artifact: {counts_art} instances, its graph here "
+         f"{ladder[repr(thr)]['deploy']}")
+    need(counts_art == counts_ckpt and sum(counts_ckpt.values()) > 0,
+         f"infer: checkpoint {counts_ckpt} vs artifact {counts_art} detections")
+    out, cli["verify_gt_wall_s"] = run_cli(["verify-gt", "--phase", "val"] + common)
+    verify_dir = os.path.join(solver_root, "val", "verify")
+    pngs = sorted(os.listdir(verify_dir))
+    need(pngs == [f"val{i:04d}.png" for i in range(SOLVER_SPLIT["val"])],
+         f"verify-gt wrote {pngs}")
+    for i, name in enumerate(pngs):
+        h, w = SOLVER_SIZES[i % 2]
+        got = png_pixels(np, os.path.join(verify_dir, name)).shape
+        need(got == (h, w, 3), f"verify-gt {name}: {got}")
+    cli.update(detections_per_image=counts_ckpt, infer_checkpoint_ms_per_image=ms_ckpt,
+               infer_artifact_ms_per_image=ms_art, verify_gt_images=len(pngs))
+    record["cli"] = cli
+    print(f"cli: the Solver's checkpoint: {cli['solver_checkpoint_detections']} "
+          f"detections; seed-7: {counts_ckpt} by checkpoint and artifact; "
+          f"export {cli['export']['bytes'] / 1e6:.1f} MB; verify-gt {len(pngs)} "
+          "PNGs", flush=True)
+    return record, (specs, model_b, model_d, g_thresh,
+                    {"val_dir": val_dir, "checkpoint": ckpt, "threshold": thr,
+                     "artifact": os.path.join(root, "cli_deploy"), "common": common})
+
+
+def export_timing(np, torch, m, api, ctx, root, images, windows):
+    """The loaded artifacts' predict ms at B=1 and B=2 (CUDA events, in a
+    fresh process, with a profiler window at B=1) beside the live predict
+    of the same graphs (CUDA events, here); the deploy artifact at B=1
+    also loaded here, and its program as ``torch.export`` leaves it (with
+    the assert nodes ``export_predict`` drops), alternating with the live
+    predict twice, each with a profiler window of its host operators; and
+    ``cli infer`` over
+    ``INFER_REPEATS`` copies of the val images by each route (host clock
+    per image)."""
+    specs, model_b, model_d, g_thresh, cmd = ctx
+    report, _, wall = run_worker(np, root, specs, images, windows, True)
+    live = {}
+    for b in (1, 2):
+        live[f"deploy_b{b}"] = cuda_ms(
+            torch, lambda: api.predict(model_b, images[b], windows[b], g_thresh["b"]), 20)
+    live["int8_b1"] = cuda_ms(
+        torch, lambda: api.predict(model_d, images[1], windows[1], g_thresh["d"]), 20)
+    k2cfg = model_b.cfg.replace(use_pallas_nms=True)
+    live["deploy_k2_b1"] = cuda_ms(torch, lambda: api.predict_from_outputs(
+        k2cfg, api.forward(model_b, images[1]), windows[1], g_thresh["b"]), 20)
+    loaded = {name: {k: v for k, v in report[name].items()
+                     if k.startswith(("predict_ms", "profile"))}
+              for name, _, _ in specs}
+    # the deploy B=1 artifact in this process, beside the live graph
+    path = dict((n, p) for n, p, _ in specs)["deploy_b1"]
+    run_here, _ = m.exp.load_artifact(path)
+    # the same program as torch.export leaves it, with the assert nodes
+    # that export_predict drops
+    with torch.no_grad():
+        kept = torch.export.export(m.exp._Serve(model_b, model_b.cfg, g_thresh["b"],
+                                                torch.device("cuda")),
+                                   (images[1], windows[1])).module()
+    n_asserts = sum(node.target is torch.ops.aten._assert_tensor_metadata.default
+                    for gm in kept.modules() if isinstance(gm, torch.fx.GraphModule)
+                    for node in gm.graph.nodes)
+
+    def run_kept():
+        with torch.no_grad():
+            return kept(images[1], windows[1])
+
+    calls = {"live": lambda: api.predict(model_b, images[1], windows[1], g_thresh["b"]),
+             "loaded": lambda: run_here(images[1], windows[1]),
+             "exported_with_asserts": run_kept}
+    want = calls["live"]()
+    for key in ("loaded", "exported_with_asserts"):
+        need(all(torch.equal(g, w) for g, w in zip(calls[key](), want)),
+             f"deploy_b1 {key} in this process differs from the live predict")
+    here = {key: [] for key in calls}
+    for _ in range(2):
+        for key, fn in calls.items():
+            here[key].append(cuda_ms(torch, fn, 20))
+    here_profiles = {key: profile_window(torch, fn, 5, here[key][-1], host_ops=True)
+                     for key, fn in calls.items()}
+    # cli infer over a longer folder: the val images copied INFER_REPEATS times
+    rep_dir = os.path.join(root, "infer_timing_images")
+    os.makedirs(rep_dir)
+    names = sorted(os.listdir(cmd["val_dir"]))
+    for r in range(INFER_REPEATS):
+        for name in names:
+            shutil.copy(os.path.join(cmd["val_dir"], name),
+                        os.path.join(rep_dir, f"r{r}_{name}"))
+    infer = {}
+    for route, extra in (("checkpoint", ["--checkpoint", cmd["checkpoint"],
+                                         "--threshold", repr(cmd["threshold"])]),
+                         ("artifact", ["--artifact", cmd["artifact"]])):
+        out, wall_s = run_cli(["infer", "--images", rep_dir, "--out",
+                               os.path.join(root, f"infer_timing_{route}")]
+                              + extra + cmd["common"])
+        ms = [float(x.group(4)) for x in map(INFER_LINE.match, out.splitlines()) if x]
+        need(len(ms) == len(names) * INFER_REPEATS, f"infer {route}: {len(ms)} lines")
+        # the first image pays the first call's set-up
+        steady = sorted(ms[1:])
+        infer[route] = {"images": len(ms), "first_ms": ms[0],
+                        "median_ms": steady[len(steady) // 2],
+                        "p90_ms": steady[int(0.9 * (len(steady) - 1))],
+                        "min_ms": steady[0], "max_ms": steady[-1], "wall_s": wall_s}
+    return {"loaded_predict_ms": loaded, "live_predict_ms": live,
+            "deploy_b1_here_ms": here, "deploy_b1_here_profiles": here_profiles,
+            "assert_nodes_dropped": n_asserts, "infer_ms_per_image": infer,
+            "worker_wall_s": wall, "worker_device": report["device"]}
+
+
 def nms_case(torch, gen, b, k):
     """Score-sorted candidates: clustered overlapping boxes, 3 classes,
     scores rounded to 1/32 (forced ties)."""
@@ -1203,13 +1691,13 @@ def assembly_config(torch, fn, sm, boxes, k, launch, apply_sigmoid=True,
     return out
 
 
-def check_nms(torch, nms, cuda_nms, nms_fn, case, max_det, tag, min_kept=0,
+def check_nms(torch, nms, custom_ops, nms_fn, case, max_det, tag, min_kept=0,
               none_in=()):
     """K2 index-exact against its plain version on the card and on the CPU,
     by its default route and with the general route forced; images
     ``none_in`` must keep nothing.  Returns the picks and their max |diff|
     from the plain version's."""
-    got = cuda_nms.nms_cuda(*case, max_det, 0.3)
+    got = custom_ops.nms_cuda(*case, max_det, 0.3)
     want = nms._select_suppress_nms(*case, 0.3, max_det)
     want_cpu = nms._select_suppress_nms(*(t.cpu() for t in case), 0.3, max_det)
     torch.cuda.synchronize()
@@ -1240,7 +1728,7 @@ def edge_boxes(torch, gen, b, d, s):
     return boxes
 
 
-def check_assembly_edges(torch, cuda_assembly, asm_fn, gen, b, s, k, d):
+def check_assembly_edges(torch, custom_ops, asm_fn, gen, b, s, k, d):
     """K1 in all three modes on ``edge_boxes``: normalized boxes on the
     NHWC map (logits bit-exact, sigmoid within 1e-6, in the default launch
     and in every swept shape), pixel boxes (the training forward) and
@@ -1252,29 +1740,29 @@ def check_assembly_edges(torch, cuda_assembly, asm_fn, gen, b, s, k, d):
     px = torch.round(bx * s)
     planes = sm.permute(0, 3, 1, 2).contiguous()
     tag = f"S={s} B={b} D={d} k={k} edge boxes"
-    want = cuda_assembly.assemble_masks_batch_plain(sm, bx, k, apply_sigmoid=False)
-    need(torch.equal(want.cpu(), cuda_assembly.assemble_masks_batch_plain(
+    want = custom_ops.assemble_masks_batch_plain(sm, bx, k, apply_sigmoid=False)
+    need(torch.equal(want.cpu(), custom_ops.assemble_masks_batch_plain(
         sm.cpu(), bx.cpu(), k, apply_sigmoid=False)),
         f"K1 plain logits differ between card and CPU ({tag})")
     need(bool(want[:, 4].all()) and not bool(want[:, 8].any())
          and not bool(want[:, d - 3:].any()), f"K1 edge case not as built ({tag})")
     for name, got in (
-            ("logits", cuda_assembly.assemble_masks_batch_cuda(sm, bx, k, False)),
+            ("logits", custom_ops.assemble_masks_batch_cuda(sm, bx, k, False)),
             *((f"logits, launch {launch}", assembly_config(torch, asm_fn, sm, bx, k,
                                                            launch, False))
               for launch in K1_CONFIGS),
-            ("planes logits", cuda_assembly.assemble_masks_batch_cuda(
+            ("planes logits", custom_ops.assemble_masks_batch_cuda(
                 planes, bx, k, False, planes=True))):
         need(torch.equal(got, want), f"K1 {name} not bit-exact ({tag})")
-    want_px = cuda_assembly.assemble_masks_batch_plain(sm, px, k, False, pixel_boxes=True)
+    want_px = custom_ops.assemble_masks_batch_plain(sm, px, k, False, pixel_boxes=True)
     for name, got in (
-            ("pixel-box logits", cuda_assembly.assemble_masks_batch_cuda(
+            ("pixel-box logits", custom_ops.assemble_masks_batch_cuda(
                 sm, px, k, False, pixel_boxes=True)),
-            ("planes pixel-box logits", cuda_assembly.assemble_masks_batch_cuda(
+            ("planes pixel-box logits", custom_ops.assemble_masks_batch_cuda(
                 planes, px, k, False, pixel_boxes=True, planes=True))):
         need(torch.equal(got, want_px), f"K1 {name} not bit-exact ({tag})")
-    got = cuda_assembly.assemble_masks_batch_cuda(sm, bx, k)
-    probs = cuda_assembly.assemble_masks_batch_plain(sm, bx, k)
+    got = custom_ops.assemble_masks_batch_cuda(sm, bx, k)
+    probs = custom_ops.assemble_masks_batch_plain(sm, bx, k)
     torch.cuda.synchronize()
     need(torch.equal(got != 0, probs != 0), f"K1 support differs ({tag})")
     err = float((got - probs).abs().max())
@@ -1287,6 +1775,7 @@ def check_assembly_edges(torch, cuda_assembly, asm_fn, gen, b, s, k, d):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
+    parser.add_argument("--artifact-worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import numpy as np
@@ -1294,10 +1783,13 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if args.artifact_worker:
+        artifact_worker(args.artifact_worker)
+        return
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dis_yolo_tpu_torch.config import DISYoloConfig
     from dis_yolo_tpu_torch.models import api, fold, quant, s2d
-    from dis_yolo_tpu_torch.ops import (_build, cuda_assembly, cuda_nms,
+    from dis_yolo_tpu_torch.ops import (_build, cuda_assembly, custom_ops,
                                         mask_assembly, nms, paste)
     from dis_yolo_tpu_torch.train import train_step as ts
     from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
@@ -1330,57 +1822,57 @@ def main() -> None:
 
     # ---- phase 2: kernels against their plain versions ----------------
     gen = torch.Generator().manual_seed(0)
-    k1_err = max(check_assembly(torch, cuda_assembly, gen, 2, 288, 3, 30, 5),
-                 check_assembly(torch, cuda_assembly, gen, 1, 576, 3, 30, 3),
-                 check_assembly(torch, cuda_assembly, gen, 1, 288, 5, 30, 3),
-                 check_assembly(torch, cuda_assembly, gen, 1, 288, 7, 30, 3),
+    k1_err = max(check_assembly(torch, custom_ops, gen, 2, 288, 3, 30, 5),
+                 check_assembly(torch, custom_ops, gen, 1, 576, 3, 30, 3),
+                 check_assembly(torch, custom_ops, gen, 1, 288, 5, 30, 3),
+                 check_assembly(torch, custom_ops, gen, 1, 288, 7, 30, 3),
                  # odd S (rows off the 16-byte grid), S=576, k=5/7, boxes
                  # on the map's edges, 1-pixel, inverted and zero boxes
-                 *(check_assembly_edges(torch, cuda_assembly, entries["assembly"],
+                 *(check_assembly_edges(torch, custom_ops, entries["assembly"],
                                         gen, b, s, k, 30)
                    for b, s, k in ((2, 145, 3), (1, 145, 5), (1, 145, 7),
                                    (1, 576, 3), (2, 288, 3))))
-    k2_errs = [check_nms(torch, nms, cuda_nms, entries["nms"],
+    k2_errs = [check_nms(torch, nms, custom_ops, entries["nms"],
                          nms_case(torch, gen, b, kk), 30, f"K={kk} B={b}", kept)[1]
                for b, kk, kept in ((2, 512, 20), (1, 1024, 10), (1, 100, 10),
                                    # one warp, a ragged warp, one candidate,
                                    # the limit
                                    (3, 1, 0), (3, 31, 3), (3, 33, 3), (3, 1024, 30))]
     case = nms_knife_edge(torch, np)
-    got, err = check_nms(torch, nms, cuda_nms, entries["nms"], case, 34, "knife edge")
+    got, err = check_nms(torch, nms, custom_ops, entries["nms"], case, 34, "knife edge")
     k2_errs.append(err)
     kept_second = int(((got >= 0) & (got % 2 == 1)).sum())
     need(0 < kept_second < 17, f"K2 knife edge not straddled: {kept_second}/17")
     print(f"K2 knife edge (IoU within 8 ulp of 0.3): {kept_second}/17 second "
           f"boxes kept", flush=True)
     # more rounds than valid candidates; a single round
-    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"],
+    k2_errs.append(check_nms(torch, nms, custom_ops, entries["nms"],
                              nms_case(torch, gen, 2, 64), 100, "K=64 B=2 max_det=100",
                              2)[1])
-    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"],
+    k2_errs.append(check_nms(torch, nms, custom_ops, entries["nms"],
                              nms_case(torch, gen, 2, 512), 1, "K=512 B=2 max_det=1",
                              2)[1])
     # scores in no order (the general route)
     case = nms_case(torch, gen, 2, 512)
     perm = torch.randperm(512, generator=gen).cuda()
     case = [t[:, perm].contiguous() for t in case]
-    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"], case, 30,
+    k2_errs.append(check_nms(torch, nms, custom_ops, entries["nms"], case, 30,
                              "K=512 B=2 shuffled", 20)[1])
     # a valid -inf inside the list (image 0) and last (image 1)
     case = nms_case(torch, gen, 2, 512)
     case[1][0, 10], case[1][1, 511] = -float("inf"), -float("inf")
     case[3][:, 10], case[3][:, 511] = True, True
-    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"], case, 30,
+    k2_errs.append(check_nms(torch, nms, custom_ops, entries["nms"], case, 30,
                              "K=512 B=2 valid -inf", 20)[1])
     # a valid NaN (image 0: nothing kept) and an invalid NaN (image 1: ignored)
     case = nms_case(torch, gen, 2, 512)
     case[1][:, 5] = float("nan")
     case[3][0, 5], case[3][1, 5] = True, False
-    k2_errs.append(check_nms(torch, nms, cuda_nms, entries["nms"], case, 30,
+    k2_errs.append(check_nms(torch, nms, custom_ops, entries["nms"], case, 30,
                              "K=512 B=2 valid NaN / invalid NaN", 10, none_in=(0,))[1])
     k2_err = max(k2_errs)
 
-    k3_cases = [check_assembly_bwd(torch, cuda_assembly, mask_assembly, gen,
+    k3_cases = [check_assembly_bwd(torch, cuda_assembly, custom_ops, mask_assembly, gen,
                                    b, s, k, r, n_zero, check_grad, edit)
                 for b, s, k, r, n_zero, check_grad, edit in (
                     (2, 288, 3, 10, 2, True, None), (1, 576, 3, 4, 1, True, None),
@@ -1407,7 +1899,7 @@ def main() -> None:
                      (1, 97, 3, 0), (2, 64, 1, 0), (1, 97, 16, 0), (3, 64, 3, 0),
                      (1, 288, 3, 1), (2, 97, 5, 1)))
     for b, s, k in ((2, 288, 3), (1, 576, 3), (1, 64, 5), (1, 64, 7)):
-        check_planes(torch, cuda_assembly, gen, b, s, k, 30, 3)
+        check_planes(torch, cuda_assembly, custom_ops, gen, b, s, k, 30, 3)
     print(f"phase 2 done at {time.time() - t_start:.0f} s", flush=True)
 
     # ---- phase 3: the slice -------------------------------------------
@@ -1431,14 +1923,14 @@ def main() -> None:
         dets, masks = api.predict(m, images[b], windows[b], th)
         return (dets, masks) + paste.paste_masks_batch(masks, dets, size, size, size)
 
-    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    custom_ops.assemble_masks_batch_cuda.launches = 0
     cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_nms.nms_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
     outs = {(b, k2): serve(model_k2 if k2 else model, b)
             for b in (1, 2) for k2 in (False, True)}
     torch.cuda.synchronize()
-    launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
-                "K2": cuda_nms.nms_cuda.launches,
+    launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
+                "K2": custom_ops.nms_cuda.launches,
                 "K3": cuda_assembly.assemble_bwd_cuda.launches}
     print(f"main path launches: {launches}", flush=True)
     need(launches["K1"] > 0 and launches["K2"] > 0,
@@ -1466,7 +1958,7 @@ def main() -> None:
     model32.load_state_dict(model.state_dict())
     raws = api.forward(model32, images[1])
     dets32, masks32 = api.predict_from_outputs(cfg32, raws, windows[1], thresh)
-    plain = cuda_assembly.assemble_masks_batch_plain(raws[3], dets32[..., :4],
+    plain = custom_ops.assemble_masks_batch_plain(raws[3], dets32[..., :4],
                                                      cfg.k_map)
     need(torch.equal(masks32 != 0, plain != 0), "f32: K1 support differs from plain")
     f32_err = float((masks32 - plain).abs().max())
@@ -1504,9 +1996,9 @@ def main() -> None:
     state1, step1 = ts.init_train_state(trainer1), ts.make_train_step(trainer1)
     gen_t = torch.Generator().manual_seed(1)
 
-    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    custom_ops.assemble_masks_batch_cuda.launches = 0
     cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_nms.nms_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
     metrics = []
     for _ in range(3):
         state1, m = step1(state1, tbatch, gen_t)
@@ -1532,8 +2024,8 @@ def main() -> None:
                 torch.Generator().manual_seed(2))[1])
         del m_k2
     torch.cuda.synchronize()
-    train_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
-                      "K2": cuda_nms.nms_cuda.launches,
+    train_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
+                      "K2": custom_ops.nms_cuda.launches,
                       "K3": cuda_assembly.assemble_bwd_cuda.launches}
     print(f"training path launches: {train_launches}", flush=True)
     need(train_launches["K1"] > 0 and train_launches["K3"] > 0
@@ -1615,10 +2107,10 @@ def main() -> None:
     g_thresh = {g: calibrate_threshold(m, images[1], gcfg)
                 for g, (gcfg, m) in graphs.items()}
     print("serving graphs: thresholds " + json.dumps(g_thresh), flush=True)
-    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    custom_ops.assemble_masks_batch_cuda.launches = 0
     cuda_assembly.assemble_bwd_cuda.launches = 0
     cuda_assembly.extract_planes_cuda.launches = 0
-    cuda_nms.nms_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
     g_outs = {}
     for g, (gcfg, m) in graphs.items():
         for b in (1, 2):
@@ -1637,8 +2129,8 @@ def main() -> None:
             need(torch.equal(dflt, masks2[i]),
                  f"graph {g} image {i}: assemble_masks_cuda != predict's masks")
     torch.cuda.synchronize()
-    graph_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
-                      "K2": cuda_nms.nms_cuda.launches,
+    graph_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
+                      "K2": custom_ops.nms_cuda.launches,
                       "K3": cuda_assembly.assemble_bwd_cuda.launches,
                       "K4": cuda_assembly.extract_planes_cuda.launches}
     print(f"serving graphs path launches: {graph_launches}", flush=True)
@@ -1705,14 +2197,14 @@ def main() -> None:
     # the evaluation path: the seed-7 model with a threshold calibrated on
     # the eval split, its three sweep routes, with and without K2
     em = eval_modules()
-    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    custom_ops.assemble_masks_batch_cuda.launches = 0
     cuda_assembly.assemble_bwd_cuda.launches = 0
     cuda_assembly.extract_planes_cuda.launches = 0
-    cuda_nms.nms_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
     eval_record, eval_ctx = eval_phase(np, torch, em, cfg, model.state_dict())
     torch.cuda.synchronize()
-    eval_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
-                     "K2": cuda_nms.nms_cuda.launches,
+    eval_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
+                     "K2": custom_ops.nms_cuda.launches,
                      "K3": cuda_assembly.assemble_bwd_cuda.launches,
                      "K4": cuda_assembly.extract_planes_cuda.launches}
     print(f"eval path launches: {eval_launches}", flush=True)
@@ -1728,14 +2220,14 @@ def main() -> None:
     os.makedirs(build_root, exist_ok=True)
     sroot = tempfile.mkdtemp(prefix="solver_smoke_", dir=build_root)
     atexit.register(shutil.rmtree, sroot, True)
-    cuda_assembly.assemble_masks_batch_cuda.launches = 0
+    custom_ops.assemble_masks_batch_cuda.launches = 0
     cuda_assembly.assemble_bwd_cuda.launches = 0
     cuda_assembly.extract_planes_cuda.launches = 0
-    cuda_nms.nms_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
     solver_record, solver_runs = solver_phase(np, torch, sol, sroot)
     torch.cuda.synchronize()
-    solver_launches = {"K1": cuda_assembly.assemble_masks_batch_cuda.launches,
-                       "K2": cuda_nms.nms_cuda.launches,
+    solver_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
+                       "K2": custom_ops.nms_cuda.launches,
                        "K3": cuda_assembly.assemble_bwd_cuda.launches,
                        "K4": cuda_assembly.extract_planes_cuda.launches}
     print(f"Solver path launches: {solver_launches}", flush=True)
@@ -1746,6 +2238,37 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("Solver run: " + json.dumps(solver_record), flush=True)
     print(f"Solver run done at {time.time() - t_start:.0f} s", flush=True)
+
+    # the serving export: artifacts saved, loaded in a fresh process and
+    # run there; cli infer / export / verify-gt on the Solver's split
+    xm = export_modules()
+    xroot = tempfile.mkdtemp(prefix="export_smoke_", dir=build_root)
+    atexit.register(shutil.rmtree, xroot, True)
+    x_images = {1: images[1], 2: images[2], 3: torch.cat([images[2], torch.from_numpy(
+        np.random.RandomState(1).rand(1, size, size, 3).astype(np.float32)).cuda()])}
+    x_windows = {1: windows[1], 2: windows[2],
+                 3: torch.cat([windows[2], windows[2][:1]])}
+    custom_ops.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
+    cuda_assembly.extract_planes_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
+    export_record, export_ctx = export_phase(np, torch, xm, api, graphs, g_thresh,
+                                             x_images, x_windows, xroot, sroot,
+                                             model.state_dict(), size)
+    torch.cuda.synchronize()
+    # in this process (the live predicts) and in the artifacts' process
+    export_launches = {
+        "K1": custom_ops.assemble_masks_batch_cuda.launches
+        + export_record["worker_launches"]["K1"],
+        "K2": custom_ops.nms_cuda.launches + export_record["worker_launches"]["K2"],
+        "K3": cuda_assembly.assemble_bwd_cuda.launches,
+        "K4": cuda_assembly.extract_planes_cuda.launches}
+    print(f"export path launches: {export_launches}", flush=True)
+    need(export_record["worker_launches"]["K1"] > 0
+         and export_record["worker_launches"]["K2"] > 0,
+         f"a kernel of the export path never launched: {export_launches}")
+    print("export path: " + json.dumps(export_record), flush=True)
+    print(f"export path done at {time.time() - t_start:.0f} s", flush=True)
 
     # ---- phase 4: timing ----------------------------------------------
     timings = {}
@@ -1794,6 +2317,25 @@ def main() -> None:
               f"train_timer {t['train_timer_s_per_step']:.4f}, load_timer "
               f"{t['load_timer_s_per_step']:.4f} s/step; {smi_line}", flush=True)
     print("Solver timing: " + json.dumps(solver_times), flush=True)
+
+    # the serving export: export s and MB per artifact, loaded vs live
+    # predict ms, infer ms per image end to end
+    export_times = export_timing(np, torch, xm, api, export_ctx, xroot, x_images,
+                                 x_windows)
+    export_times["export_s"] = {n: a["export_s"] + a["save_s"]
+                                for n, a in export_record["artifacts"].items()}
+    export_times["artifact_mb"] = {n: a["artifact_mb"]
+                                   for n, a in export_record["artifacts"].items()}
+    print(f"export timing ({smi_line}): " + json.dumps(
+        {k: v for k, v in export_times.items()
+         if k not in ("deploy_b1_here_profiles", "loaded_predict_ms")}
+        | {"loaded_predict_ms": {n: {k: v for k, v in r.items() if k != "profile_b1"}
+                                 for n, r in export_times["loaded_predict_ms"].items()}}),
+        flush=True)
+    for key, prof in export_times["deploy_b1_here_profiles"].items():
+        print(f"deploy B=1 {key}, host ops: " + json.dumps(
+            {k: v for k, v in prof.items() if k != "top_kernels_us_per_call"}),
+            flush=True)
 
     # the eval sweep, s/image per route: device predict and host post
     eval_sweep = eval_timing(em, *eval_ctx)
@@ -1846,9 +2388,9 @@ def main() -> None:
     (k1_args, k1_kw), (k2_args, k2_kw) = (captured["assemble_masks_batch_cuda"],
                                           captured["nms_cuda"])
     sm, bx, k = k1_args[0], k1_args[1], k1_args[2]
-    k1 = lambda: cuda_assembly.assemble_masks_batch_cuda(*k1_args, **k1_kw)
-    k1_plain_fn = lambda: cuda_assembly.assemble_masks_batch_plain(*k1_args, **k1_kw)
-    k2 = lambda: cuda_nms.nms_cuda(*k2_args, **k2_kw)
+    k1 = lambda: custom_ops.assemble_masks_batch_cuda(*k1_args, **k1_kw)
+    k1_plain_fn = lambda: custom_ops.assemble_masks_batch_plain(*k1_args, **k1_kw)
+    k2 = lambda: custom_ops.nms_cuda(*k2_args, **k2_kw)
     k2_plain_fn = lambda: nms._select_suppress_nms(*k2_args[:4], k2_args[5],
                                                    k2_args[4])
     k1_ms, k1_plain, k2_ms, k2_plain = (graph_ms(torch, f) for f in
@@ -1859,7 +2401,7 @@ def main() -> None:
     # prologue; the rest of K2's time is its other max_det - 1 rounds
     max_det = k2_args[4]
     per_call["K2_one_round_device"] = graph_ms(
-        torch, lambda: cuda_nms.nms_cuda(*k2_args[:4], 1, k2_args[5]))
+        torch, lambda: custom_ops.nms_cuda(*k2_args[:4], 1, k2_args[5]))
     per_call["K2_per_round_device"] = ((k2_ms - per_call["K2_one_round_device"])
                                        / (max_det - 1))
     print("kernel ms per call incl. the host's wrapper and launch, and K2's one "
@@ -1871,7 +2413,7 @@ def main() -> None:
                      out_px * (6 + 2 * (k_ - 1)))
 
     k1_bound = k1_bound_of(sm, bx, k)
-    picked = cuda_nms.nms_cuda(*k2_args, **k2_kw)
+    picked = custom_ops.nms_cuda(*k2_args, **k2_kw)
     kk = k2_args[1].shape[1]
     # greedy NMS needs one row of pair tests per winner and one argmax
     # over K per round (the kernel stops after the round that finds none)
@@ -1900,7 +2442,7 @@ def main() -> None:
     # K3 (and K1 in pixel-box mode) at the training path's shapes: the
     # arguments of one stage-2 step, recorded after the timed runs
     with capturing(captured, (cuda_assembly, "assemble_bwd_cuda"),
-                   (cuda_assembly, "assemble_masks_batch_cuda")):
+                   (custom_ops, "assemble_masks_batch_cuda")):
         step2(state2, tbatch, gen_t)
     (k3_args, _), (k1t_args, k1t_kw) = (captured["assemble_bwd_cuda"],
                                         captured["assemble_masks_batch_cuda"])
@@ -1909,7 +2451,7 @@ def main() -> None:
     k3_plain_fn = lambda: mask_assembly.assemble_bwd_plain(*k3_args)
     k3_ms, k3_plain = graph_ms(torch, k3), graph_ms(torch, k3_plain_fn)
     per_call["K1_train_pixel_boxes_device"] = graph_ms(
-        torch, lambda: cuda_assembly.assemble_masks_batch_cuda(*k1t_args, **k1t_kw))
+        torch, lambda: custom_ops.assemble_masks_batch_cuda(*k1t_args, **k1t_kw))
     per_call["K3"] = cuda_ms(torch, k3, 100)
     s3 = g_rois.shape[-1]
     # what this run's ROIs need: g read only at the (ROI, pixel inside
@@ -1981,7 +2523,7 @@ def main() -> None:
     # K1 on channel planes, on the serving path's captured inputs
     k1_planes = sm.permute(0, 3, 1, 2).contiguous()
     per_call["K1_planes_device"] = graph_ms(
-        torch, lambda: cuda_assembly.assemble_masks_batch_cuda(
+        torch, lambda: custom_ops.assemble_masks_batch_cuda(
             k1_planes, bx, k, planes=True))
     print(f"K1 planes S={sm.shape[1]} D={bx.shape[1]}: "
           f"{per_call['K1_planes_device'] * 1e3:.1f} us (NHWC {k1_ms * 1e3:.1f} us)",
@@ -2033,7 +2575,8 @@ def main() -> None:
                    "training": train_launches.get(name, 0),
                    "serving_graphs": graph_launches[name],
                    "eval": eval_launches[name],
-                   "solver": solver_launches[name]}
+                   "solver": solver_launches[name],
+                   "export": export_launches[name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
@@ -2107,6 +2650,9 @@ def main() -> None:
                        "launches_solver_path": solver_launches,
                        "solver_run": solver_record,
                        "solver_timing": solver_times,
+                       "launches_export_path": export_launches,
+                       "export_path": export_record,
+                       "export_timing": export_times,
                        "seconds": time.time() - t_start,
                        "kernels": kernels},
                       f, indent=1)

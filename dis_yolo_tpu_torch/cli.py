@@ -4,22 +4,30 @@
     python -m dis_yolo_tpu_torch.cli {train,eval,preprocess,synth,
                                       convert-tf1,convert-darknet} ...
 
+    python -m dis_yolo_tpu_torch.cli {infer,export,verify-gt} ...
+
 The subcommands take the JAX CLI's flags, plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path on the CPU, and
-without a card nothing falls back to it).  Not ported yet: ``infer``,
-``export`` and ``verify-gt`` (they need the export path and the overlay
-renderer) print so and exit 2; ``train --data-parallel``,
+without a card nothing falls back to it); ``export`` takes ``--device``
+in place of ``--platforms``.  ``train --data-parallel``,
 ``--steps-per-dispatch > 1`` and ``--device-corpus`` exit with a "not
 ported yet" error.  ``preprocess`` and ``synth`` need OpenCV.
+
+``infer`` and ``verify-gt`` write their overlays as ``<stem>.png``
+(``data.image_io.write_png``: the card's machine has neither OpenCV nor
+PIL), where the JAX CLI keeps the input's name; without PIL the labels
+are left off and a note says so on stderr.  ``infer --artifact`` serves
+a dynamic-batch artifact at B=1 (the JAX CLI reads its batch as an int
+and fails on it).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
-
-NOT_PORTED = ("infer", "export", "verify-gt")
+import time
 
 
 def _add_common(p):
@@ -153,6 +161,168 @@ def cmd_eval(args):
                       "s_per_image_post": t_post / n_timed}))
 
 
+def _labels_note():
+    from dis_yolo_tpu_torch.utils.visualize import have_labels
+    if not have_labels():
+        print("note: PIL is not installed: the overlays carry no labels",
+              file=sys.stderr)
+
+
+def cmd_verify_gt(args):
+    from dis_yolo_tpu_torch.utils.visualize import render_groundtruth
+    _labels_note()
+    paths = render_groundtruth(args.dataset, args.phase, limit=args.limit)
+    print(f"wrote {len(paths)} verification overlays")
+
+
+def _read(path):
+    from dis_yolo_tpu_torch.data.image_io import read_image
+    try:
+        return read_image(path)
+    except (OSError, RuntimeError, ValueError) as e:
+        raise SystemExit(f"error: cannot read image {path!r} ({e})")
+
+
+def _serving_model(cfg, args, calib_images=None, folded=False):
+    """The serving graph of ``--checkpoint`` (seed-0 weights without
+    one): the int8 graph calibrated on ``calib_images`` with ``--quant``,
+    else the BN-folded graph (``folded``: ``fold_batchnorm``, the same
+    layers) or the deploy graph.  Returns (serving config, model)."""
+    from dis_yolo_tpu_torch.models import api
+    from dis_yolo_tpu_torch.models.fold import (deploy_variables,
+                                                fold_batchnorm)
+    from dis_yolo_tpu_torch.train import checkpoint as ckpt
+
+    model = api.init_model(cfg, 0, device=args.device)
+    if args.checkpoint:
+        ckpt.restore_weights(args.checkpoint, model)
+    if folded and not args.quant:
+        model.load_state_dict(fold_batchnorm(model.state_dict()))
+        return cfg, model
+    dv = deploy_variables(model.state_dict())
+    del model
+    if args.quant:
+        from dis_yolo_tpu_torch.models.quant import (calibrate_deploy,
+                                                     quantize_deploy)
+        cmodel = api.create_model(cfg.replace(quant=True, quant_calibrate=True),
+                                  device=args.device)
+        scales = calibrate_deploy(cmodel, dv, calib_images,
+                                  use_pct=args.quant_calib == "pct")
+        del cmodel
+        serve_cfg = cfg.replace(quant=True)
+        state = quantize_deploy(dv, scales)
+        print(f"int8 graph: {len(scales)} layers quantized "
+              f"({args.quant_calib} scales, {len(calib_images)} calib "
+              "images)")
+    else:
+        serve_cfg, state = cfg.replace(deploy=True), dv
+    model = api.create_model(serve_cfg, device=args.device)
+    model.load_state_dict(state)
+    return serve_cfg, model
+
+
+def cmd_infer(args):
+    """Single-image / directory inference with overlay output: the
+    BN-folded graph of ``--checkpoint``, the int8 graph (``--quant``,
+    calibrated on the first 8 inputs) or an exported artifact."""
+    import numpy as np
+    import torch
+    from dis_yolo_tpu_torch.data.image_io import write_png
+    from dis_yolo_tpu_torch.data.val_data import letterbox_image
+    from dis_yolo_tpu_torch.eval.postprocess import detections_to_original
+    from dis_yolo_tpu_torch.utils.visualize import draw_instances
+
+    cfg = _make_cfg(args, batch_size=1)
+    paths = ([os.path.join(args.images, f)
+              for f in sorted(os.listdir(args.images))
+              if f.lower().endswith((".jpg", ".png", ".jpeg"))]
+             if os.path.isdir(args.images) else [args.images])
+    _labels_note()
+
+    if args.artifact:
+        # serve from an exported artifact: no model code, no checkpoint,
+        # the weights are inside (export.py)
+        from dis_yolo_tpu_torch.export import load_artifact
+        run_art, meta = load_artifact(args.artifact)
+        art_cfg = meta.get("config", {})
+        size = int(art_cfg.get("test_size", cfg.test_size))
+        batch = meta.get("in_shapes", [[1]])[0][0]
+        # a dynamic batch (its name) is served at B=1
+        bsz = batch if isinstance(batch, int) else 1
+        classes = tuple(art_cfg.get("classes", cfg.classes))
+        dev = torch.device(meta.get("device", args.device))
+
+        def predict(canvas, window):
+            imgs = np.zeros((bsz, size, size, 3), np.float32)
+            imgs[0] = canvas
+            wins = np.tile(np.asarray(window, np.float32), (bsz, 1))
+            return run_art(torch.from_numpy(imgs).to(dev),
+                           torch.from_numpy(wins).to(dev))
+    else:
+        from dis_yolo_tpu_torch.models import api
+        size, classes = cfg.test_size, cfg.classes
+        calib = None
+        if args.quant:
+            # no train split here: the activation scales calibrate on the
+            # first inputs themselves, the deployment's own distribution
+            calib = np.stack([letterbox_image(_read(p), size)[0]
+                              for p in paths[:8]])
+        _, model = _serving_model(cfg, args, calib, folded=True)
+
+        def predict(canvas, window):
+            return api.predict(model, canvas[None], window[None],
+                               args.threshold, device=args.device)
+
+    os.makedirs(args.out, exist_ok=True)
+    for path in paths:
+        t0 = time.perf_counter()
+        rgb = _read(path)
+        h, w = rgb.shape[:2]
+        canvas, window = letterbox_image(rgb, size)
+        dets, masks = predict(canvas, window)
+        insts = detections_to_original(dets[0].cpu().numpy(),
+                                       masks[0].cpu().numpy(), h, w, size)
+        rendered = draw_instances(rgb, [
+            {"classname": classes[i["classid"]], "mask": i["mask"],
+             "box": i["box"], "score": i["score"]} for i in insts])
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out_path = os.path.join(args.out, stem + ".png")
+        write_png(out_path, rendered)
+        # read, letterbox, predict, paste, render and write
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"{path}: {len(insts)} detections -> {out_path} ({ms:.1f} ms)")
+
+
+def cmd_export(args):
+    """Write the serving graph (weights inside) as a self-contained
+    ``torch.export`` artifact: the deploy graph, or the int8 graph with
+    ``--quant`` (calibrated on the train split)."""
+    from dis_yolo_tpu_torch import export as exp
+    from dis_yolo_tpu_torch.data.val_data import DefectValData
+
+    bs = args.symbolic_batch or args.batch_size
+    cfg = _make_cfg(args, batch_size=bs if isinstance(bs, int) else 1)
+    calib = None
+    if args.quant:
+        try:
+            calib = DefectValData(cfg, "train").get()[0][
+                :args.quant_calib_images]
+        except (OSError, AssertionError):
+            raise SystemExit("error: --quant export calibrates on the "
+                             "train split; none found under --dataset")
+    serve_cfg, model = _serving_model(cfg, args, calib)
+    ep = exp.export_predict(serve_cfg, model, batch_size=bs,
+                            obj_thresh=args.threshold, device=args.device)
+    blob = exp.save_artifact(ep, args.out, serve_cfg,
+                             obj_thresh=args.threshold,
+                             extra_meta={"quant": bool(args.quant),
+                                         "checkpoint": args.checkpoint})
+    print(json.dumps({
+        "artifact": blob, "meta": args.out + ".json",
+        "device": str(args.device), "batch_size": bs,
+        "image_size": cfg.test_size, "bytes": os.path.getsize(blob)}))
+
+
 def cmd_convert_tf1(args):
     import numpy as np
     from dis_yolo_tpu_torch.train.checkpoint import convert_tf1_checkpoint
@@ -176,13 +346,6 @@ def cmd_convert_darknet(args):
     np.save(args.out, values, allow_pickle=True)
     print(f"saved {len(values)} tensors to {args.out} "
           f"(feed to train --tf1-weights for the stage-1 restore)")
-
-
-def cmd_not_ported(args):
-    print(f"dis_yolo_tpu_torch: '{args.command}' is not ported yet (it needs "
-          "the export path and the overlay renderer, ROADMAP A.6); use "
-          "python -m dis_yolo_tpu.cli for it", file=sys.stderr)
-    return 2
 
 
 def main(argv=None):
@@ -241,9 +404,46 @@ def main(argv=None):
                         "confusion totals")
     p.set_defaults(fn=cmd_eval)
 
-    for name in NOT_PORTED:
-        p = sub.add_parser(name, help="not ported yet")
-        p.set_defaults(fn=cmd_not_ported)
+    p = sub.add_parser("verify-gt", help="render GT verification overlays")
+    _add_common(p)
+    p.add_argument("--phase", default="train", choices=["train", "val", "test"])
+    p.add_argument("--limit", type=int, default=None)
+    p.set_defaults(fn=cmd_verify_gt)
+
+    p = sub.add_parser("infer", help="run inference + overlay on image(s)")
+    _add_common(p)
+    p.add_argument("--images", required=True, help="image file or directory")
+    p.add_argument("--out", default="infer_out")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--threshold", type=float, default=0.25)
+    p.add_argument("--quant", action="store_true",
+                   help="serve the int8 graph (activation scales "
+                        "calibrated on the first input images)")
+    p.add_argument("--quant-calib", default="pct", choices=["max", "pct"])
+    p.add_argument("--artifact", default=None,
+                   help="serve from an exported artifact (see the `export` "
+                        "subcommand) on the device it was exported for; "
+                        "ignores --checkpoint/--quant/--threshold")
+    p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("export", help="write the serving graph as a "
+                                      "self-contained torch.export artifact")
+    _add_common(p)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--out", required=True,
+                   help="artifact path prefix (writes .pt2 + .json)")
+    p.add_argument("--threshold", type=float, default=0.25)
+    p.add_argument("--quant", action="store_true",
+                   help="export the int8 graph (calibrated on the train "
+                        "split)")
+    p.add_argument("--quant-calib", default="pct", choices=["max", "pct"])
+    p.add_argument("--quant-calib-images", type=int, default=8)
+    p.add_argument("--symbolic-batch", nargs="?", const="b", default=None,
+                   metavar="DIM",
+                   help="export an artifact whose batch dim is dynamic "
+                        "(serves any batch size); optional dim name, "
+                        "default 'b'")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("convert-tf1", help="TF1 .ckpt -> .npy weight dict")
     p.add_argument("--ckpt", required=True)
@@ -259,9 +459,7 @@ def main(argv=None):
     p.add_argument("--source-classes", type=int, default=80)
     p.set_defaults(fn=cmd_convert_darknet)
 
-    args, unknown = parser.parse_known_args(argv)
-    if unknown and args.fn is not cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     return args.fn(args)
 
 

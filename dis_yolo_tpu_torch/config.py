@@ -85,8 +85,12 @@ class DISYoloConfig:
     # ---- precision and kernels --------------------------------------------
     compute_dtype: str = "bfloat16"   # conv compute dtype; BN runs in f32
     param_dtype: str = "float32"
-    # the port's assembly always runs its CUDA kernel on CUDA tensors; False
-    # (the JAX package's gather path) is not ported
+    # serving assembly: True runs kernel K1 on CUDA tensors (its plain
+    # version on the CPU), exact 0 outside each box; False the JAX
+    # package's gather formulation (sigmoid(0) = 0.5 outside the box on
+    # valid rows).  `models/api.predict_from_outputs` and
+    # `export.export_predict` read it.  The train step assembles through
+    # K1/K3 either way: the gather computes the same logits
     use_pallas_assembly: bool = True
     # ---- serving graphs (inference only: `check_trainable` refuses them) ---
     # deploy: ConvBN blocks become conv + folded-BN bias + leaky
@@ -122,7 +126,7 @@ class DISYoloConfig:
     # nearest upsample, the kernel split by rows (eval only: refused by
     # `check_trainable`; ignored by the deploy and quant graphs, as in JAX)
     decoder_commute: bool = False
-    # NMS through the hand-written CUDA kernel (ops/cuda_nms.py) when the
+    # NMS through the hand-written CUDA kernel (ops/custom_ops.py) when the
     # tensors are on CUDA; otherwise, and by default, `nms_engine` runs
     use_pallas_nms: bool = False
     # "fixpoint": keep set by repeated O(K^2) sweeps until stable; "scan":
@@ -208,7 +212,7 @@ class DISYoloConfig:
 
 
 # fields of the graph whose non-default values the port lacks
-UNPORTED_GRAPH_FIELDS = ("use_pallas_assembly", "remat")
+UNPORTED_GRAPH_FIELDS = ("remat",)
 
 # training knobs and graphs, and the one value of each that the train step
 # supports (`remat` is refused with the graph variants); the serving

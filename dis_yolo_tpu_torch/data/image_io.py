@@ -6,10 +6,14 @@ is parsed here in numpy; anything else goes to OpenCV when it imports,
 and raises a clear error when it does not (there is no other decoder to
 fall back to).  A P6 file written under a ``.jpg`` name reads back the
 same through both, so a split stored as P6 is read on a machine without
-OpenCV or PIL, as the card's machine is.
+OpenCV or PIL, as the card's machine is.  ``write_png`` writes the
+rendered overlays as lossless PNG with the standard library's ``zlib``.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -72,3 +76,27 @@ def write_ppm(path: str, rgb: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"P6\n%d %d\n255\n" % (w, h))
         f.write(rgb.tobytes())
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write RGB uint8 [H, W, 3] as an 8-bit truecolor PNG (no filter on
+    any scanline, zlib level 6), readable by any PNG decoder."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"write_png expects [H, W, 3] uint8, got "
+                         f"{rgb.shape}")
+    h, w = rgb.shape[:2]
+    # each scanline starts with its filter type, 0 (none)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgb.reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                                0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))

@@ -4,9 +4,13 @@
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request it raises, so a
 run never drifts to the CPU.  On CUDA the mask assembly launches its
-hand-written kernel (``ops.cuda_assembly``) and, with
-``cfg.use_pallas_nms``, so does NMS (``ops.cuda_nms``); on the CPU both
-run their plain PyTorch versions.
+hand-written kernel K1 (the custom operator ``dis_yolo::assemble_masks``
+of ``ops.custom_ops``) and, with ``cfg.use_pallas_nms``, so does NMS
+(K2, ``dis_yolo::nms``); on the CPU both run their plain PyTorch
+versions.  ``cfg.use_pallas_assembly=False`` assembles with the JAX
+package's gather formulation instead (``ops.mask_assembly``): the
+sigmoid of every pixel, so 0.5 outside the box on valid rows, and 0 on
+padding rows.
 
 The serving graphs (``deploy``, ``quant``, ``quant_calibrate``,
 ``s2d_stem``, ``decoder_commute``) run through the same entry points with
@@ -26,8 +30,8 @@ from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.models.dis_yolo import DISYolo
 from dis_yolo_tpu_torch.models.layers import ConvBias, ConvBN, DeployConv
 from dis_yolo_tpu_torch.models.quant import QuantConv
-from dis_yolo_tpu_torch.ops import nms
-from dis_yolo_tpu_torch.ops.cuda_assembly import assemble_masks_batch_cuda
+from dis_yolo_tpu_torch.ops import mask_assembly, nms
+from dis_yolo_tpu_torch.ops.custom_ops import assemble_masks_batch_cuda
 from dis_yolo_tpu_torch.ops.decode import decode_all
 
 
@@ -112,7 +116,11 @@ def predict_from_outputs(cfg: DISYoloConfig, raws: Sequence, windows,
                          obj_thresh: Optional[float] = None, device=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The post-forward half of ``predict``: raw head outputs -> detections
-    + assembled masks (decode, NMS, degenerate-box drop, assembly)."""
+    + assembled masks (decode, NMS, degenerate-box drop, assembly).
+
+    ``cfg.use_pallas_assembly`` picks the assembly: K1 (exact 0 outside
+    each box), or the gather formulation times validity (0.5 outside the
+    box on valid rows, as the JAX package's jnp route)."""
     cfg.check_ported()
     dev = resolve_device(device)
     raws = [_to_device(r, dev) for r in raws]
@@ -132,9 +140,15 @@ def predict_from_outputs(cfg: DISYoloConfig, raws: Sequence, windows,
                          & (boxes_px[..., 3] - boxes_px[..., 1] > 0))
         valid = torch.any(dets[..., :4] != 0.0, dim=-1) & nondegenerate
         dets = dets * valid[..., None]
-        # invalid rows now hold a zero box, which assembles to an all-zero
-        # mask: the JAX path's extra `masks * valid` is not needed
-        masks = assemble_masks_batch_cuda(raws[3].float().contiguous(),
-                                          dets[..., :4].contiguous(),
-                                          cfg.k_map, apply_sigmoid=True)
+        if cfg.use_pallas_assembly:
+            # invalid rows now hold a zero box, which K1 assembles to an
+            # all-zero mask: the gather route's `masks * valid` is not
+            # needed
+            masks = assemble_masks_batch_cuda(raws[3].float().contiguous(),
+                                              dets[..., :4].contiguous(),
+                                              cfg.k_map, apply_sigmoid=True)
+        else:
+            masks = mask_assembly.assemble_masks_batch(
+                raws[3].float(), dets[..., :4], cfg.k_map)
+            masks = masks * valid[..., None, None]
     return dets, masks

@@ -164,8 +164,12 @@ class DISYolo(nn.Module):
         cfg = self.cfg
         c = self._c
         a = cfg.anchors_per_scale
-        # NHWC -> NCHW view: channels-last strides, no copy
-        x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
+        # NHWC -> NCHW view: channels-last strides.  The copy takes the
+        # input to row-major strides first: a batch of one made with a
+        # numpy newaxis has batch stride 0, which PyTorch reads as NCHW
+        # and convolves with other kernels, other roundings
+        x = images.to(self.compute_dtype, copy=True,
+                      memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
 
         # ---- Darknet-53 backbone ----
         if cfg.s2d_stem:

@@ -19,113 +19,31 @@ box each pixel is sigmoid(score map channel of its k x k bin); outside it
 is an exact 0 (the gather path's sigmoid maps it to 0.5).  With
 ``apply_sigmoid=False`` the output is the raw logits, 0 outside.
 
-Each wrapper (``assemble_masks_batch_cuda``, ``assemble_bwd_cuda``,
-``extract_planes_cuda``) launches its kernel for CUDA tensors and runs
-its plain PyTorch version only for CPU tensors; anything else raises.
-Its ``launches`` attribute counts kernel launches.  ``assemble_masks_trainable`` is the
-``torch.autograd.Function`` of the training path: K1 forward in
-pixel-box mode, K3 backward.
+Each wrapper (K1's ``custom_ops.assemble_masks_batch_cuda``,
+``assemble_bwd_cuda``, ``extract_planes_cuda``) launches its kernel for
+CUDA tensors and runs its plain PyTorch version only for CPU tensors;
+anything else raises.
+Its ``launches`` attribute counts kernel launches.  K1's wrapper and
+plain version live in ``ops.custom_ops``, where K1 is the custom
+operator ``dis_yolo::assemble_masks`` (in all three modes), so that an
+exported serving graph holds it.
+``assemble_masks_trainable`` is the ``torch.autograd.Function`` of the
+training path: K1 forward in pixel-box mode, K3 backward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dis_yolo_tpu_torch.ops import _build
-from dis_yolo_tpu_torch.ops.mask_assembly import (_assemble_px,
-                                                  assemble_bwd_plain)
+from dis_yolo_tpu_torch.ops import _build, custom_ops
+from dis_yolo_tpu_torch.ops.custom_ops import MAX_K, check_f32, on_cpu
+from dis_yolo_tpu_torch.ops.mask_assembly import assemble_bwd_plain
 
-MAX_K = 16
+__all__ = ("MAX_K", "MAX_ROIS", "extract_planes_plain",
+           "extract_planes_cuda", "assemble_masks_cuda", "assemble_bwd_cuda",
+           "assemble_masks_trainable")
+
 MAX_ROIS = 256          # K3 keeps every ROI's grid lines in shared memory
-
-
-def assemble_masks_batch_plain(scoremaps: torch.Tensor,
-                               boxes_norm: torch.Tensor, k: int,
-                               apply_sigmoid: bool = True,
-                               pixel_boxes: bool = False,
-                               planes: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of K1: [B,S,S,k*k] + [B,D,4] -> [B,D,S,S].
-    ``pixel_boxes``: the boxes are already rounded score-map pixels;
-    ``planes``: the score maps are channel planes [B,k*k,S,S]."""
-    if planes:
-        scoremaps = scoremaps.permute(0, 2, 3, 1)
-    s = scoremaps.shape[1]
-    boxes_px = (boxes_norm.float() if pixel_boxes
-                else torch.round(boxes_norm.float() * s))
-    logits, inside = _assemble_px(scoremaps.float(), boxes_px, k)
-    if not apply_sigmoid:
-        return logits
-    return torch.where(inside, 1.0 / (1.0 + torch.exp(-logits)), 0.0)
-
-
-def _on_cpu(name: str, tensors) -> bool:
-    """True for CPU tensors (the plain version runs); raises unless all
-    lie on one CUDA device."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name} needs its tensors on one CUDA device "
-                         f"(or all on the CPU), got {devices}")
-    return False
-
-
-def _check_f32(**tensors) -> None:
-    for name, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got "
-                             f"{t.dtype} contiguous={t.is_contiguous()}")
-
-
-def _check(scoremaps: torch.Tensor, boxes_norm: torch.Tensor, k: int,
-           planes: bool = False) -> None:
-    shape = tuple(scoremaps.shape)
-    if planes:
-        ok = len(shape) == 4 and shape[2] == shape[3] and shape[1] == k * k
-    else:
-        ok = len(shape) == 4 and shape[1] == shape[2] and shape[3] == k * k
-    if not ok:
-        want = f"[B,{k * k},S,S]" if planes else f"[B,S,S,{k * k}]"
-        raise ValueError(f"scoremaps must be {want}, got {shape}")
-    if boxes_norm.dim() != 3 or boxes_norm.shape[0] != scoremaps.shape[0] \
-            or boxes_norm.shape[2] != 4:
-        raise ValueError(f"boxes_norm must be [B,D,4] with B="
-                         f"{scoremaps.shape[0]}, got {tuple(boxes_norm.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
-
-
-def assemble_masks_batch_cuda(scoremaps: torch.Tensor,
-                              boxes_norm: torch.Tensor, k: int,
-                              apply_sigmoid: bool = True,
-                              pixel_boxes: bool = False,
-                              planes: bool = False) -> torch.Tensor:
-    """[B,S,S,k*k] f32 score maps + [B,D,4] normalized yxyx boxes ->
-    [B,D,S,S] f32 masks (sigmoid inside the box, 0 outside).  With
-    ``pixel_boxes`` the boxes are already rounded score-map pixels (the
-    training forward) and are not rounded again; with ``planes`` the
-    score maps are channel planes [B,k*k,S,S] (K4's output)."""
-    _check(scoremaps, boxes_norm, k, planes)
-    if _on_cpu("assemble_masks_batch_cuda", (scoremaps, boxes_norm)):
-        return assemble_masks_batch_plain(scoremaps, boxes_norm, k,
-                                          apply_sigmoid, pixel_boxes, planes)
-    _check_f32(scoremaps=scoremaps, boxes_norm=boxes_norm)
-    bsz, s = scoremaps.shape[0], scoremaps.shape[2]
-    d = boxes_norm.shape[1]
-    out = torch.empty((bsz, d, s, s), dtype=torch.float32,
-                      device=scoremaps.device)
-    fn = _build.load("assembly")
-    with torch.cuda.device(scoremaps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(scoremaps.data_ptr(), boxes_norm.data_ptr(), out.data_ptr(),
-                 bsz, d, s, k, int(apply_sigmoid), int(pixel_boxes),
-                 int(planes), stream)
-    _build.check(err, "assembly kernel launch")
-    assemble_masks_batch_cuda.launches += 1
-    return out
-
-
-assemble_masks_batch_cuda.launches = 0
 
 
 def extract_planes_plain(sm2d: torch.Tensor, k: int) -> torch.Tensor:
@@ -144,7 +62,7 @@ def extract_planes_cuda(sm2d: torch.Tensor, k: int) -> torch.Tensor:
                          f"got {tuple(sm2d.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
-    if _on_cpu("extract_planes_cuda", (sm2d,)):
+    if on_cpu("extract_planes_cuda", (sm2d,)):
         return extract_planes_plain(sm2d, k)
     if sm2d.dtype not in (torch.bfloat16, torch.float32) \
             or not sm2d.is_contiguous():
@@ -181,11 +99,11 @@ def assemble_masks_cuda(scoremap: torch.Tensor, boxes_norm: torch.Tensor,
     if use_extract:
         sm2d = scoremap.contiguous().reshape(1, s, s * k * k)
         planes = extract_planes_cuda(sm2d, k)
-        out = assemble_masks_batch_cuda(planes, boxes, k, apply_sigmoid,
-                                        planes=True)
+        out = custom_ops.assemble_masks_batch_cuda(planes, boxes, k,
+                                                   apply_sigmoid, planes=True)
     else:
-        out = assemble_masks_batch_cuda(scoremap.float().contiguous()[None],
-                                        boxes, k, apply_sigmoid)
+        out = custom_ops.assemble_masks_batch_cuda(
+            scoremap.float().contiguous()[None], boxes, k, apply_sigmoid)
     return out[0]
 
 
@@ -202,9 +120,9 @@ def assemble_bwd_cuda(boxes_px: torch.Tensor, g: torch.Tensor,
     if not 1 <= k <= MAX_K or g.shape[1] > MAX_ROIS:
         raise ValueError(f"assemble_bwd_cuda supports 1 <= k <= {MAX_K} and "
                          f"R <= {MAX_ROIS}, got k={k}, R={g.shape[1]}")
-    if _on_cpu("assemble_bwd_cuda", (boxes_px, g)):
+    if on_cpu("assemble_bwd_cuda", (boxes_px, g)):
         return assemble_bwd_plain(boxes_px.float(), g, k)
-    _check_f32(boxes_px=boxes_px, g=g)
+    check_f32(boxes_px=boxes_px, g=g)
     bsz, r, s = g.shape[0], g.shape[1], g.shape[2]
     out = torch.empty((bsz, s, s, k * k), dtype=torch.float32, device=g.device)
     fn = _build.load("assembly_bwd")
@@ -230,9 +148,9 @@ class _AssembleTrainable(torch.autograd.Function):
         boxes_px = boxes_px.float().contiguous()
         ctx.save_for_backward(boxes_px)
         ctx.k = k
-        return assemble_masks_batch_cuda(scoremaps.float().contiguous(),
-                                         boxes_px, k, apply_sigmoid=False,
-                                         pixel_boxes=True)
+        return custom_ops.assemble_masks_batch_cuda(
+            scoremaps.float().contiguous(), boxes_px, k, apply_sigmoid=False,
+            pixel_boxes=True)
 
     @staticmethod
     def backward(ctx, g):

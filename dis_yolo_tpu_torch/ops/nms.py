@@ -6,7 +6,7 @@ of ``dis_yolo_tpu/ops/nms.py``).
   3. validity = conf > obj_threshold (strict)
   4. top-K score-sorted shortlist, then greedy NMS with *per-class*
      suppression at IoU > iou_threshold: the ``fixpoint`` or ``scan``
-     engine, or the CUDA kernel (``ops.cuda_nms``) when
+     engine, or the CUDA kernel K2 (``ops.custom_ops``) when
      ``cfg.use_pallas_nms`` is set and the tensors are on CUDA
   5. score-sorted survivors as zero-padded (y1, x1, y2, x2, classid, conf)
      rows, [B, max_detection, 6]
@@ -15,6 +15,18 @@ The JAX package vmaps per-image functions over the batch; here every
 function takes the batch dimension written out.  ``lax.top_k``'s tie
 order (lowest index first) is kept with a stable descending sort:
 ``torch.topk`` promises no tie order on CUDA.
+
+The data-dependent control flow is PyTorch's higher-order operators,
+which ``torch.export`` records as graph nodes: the fixpoint loop is
+``while_loop`` (JAX's ``lax.while_loop``) and the shortfall fallback
+``cond`` (JAX's ``lax.cond``), in eager code and in an exported graph
+alike.  They are called as operators (``while_loop_op``, ``cond_op``)
+with every tensor they read passed in, not through the public
+``torch.cond``/``while_loop`` wrappers, which compile their branches
+with ``torch.compile`` on every eager call with new shapes.  Eagerly
+each still reads its predicate on the host: one device sync per sweep
+and one for the fallback.  Neither supports autograd; every caller runs
+NMS under ``torch.no_grad`` (the train step's proposals too).
 """
 
 from __future__ import annotations
@@ -22,10 +34,12 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch._higher_order_ops.cond import cond_op
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.ops import boxes as box_ops
-from dis_yolo_tpu_torch.ops.cuda_nms import nms_cuda
+from dis_yolo_tpu_torch.ops.custom_ops import nms_cuda
 from dis_yolo_tpu_torch.ops.decode import ScalePrediction
 
 _NEG_INF = float("-inf")
@@ -103,6 +117,19 @@ def _select_suppress_nms_full(boxes: torch.Tensor, scores: torch.Tensor,
     return torch.stack(picked, dim=-1)
 
 
+def _sweep(kept, suppress, valid):
+    """One fixpoint sweep: valid candidates that no kept winner suppresses."""
+    return valid & ~torch.any(suppress & kept[:, :, None], dim=1)
+
+
+def _sweep_changed(kept, prev, suppress, valid):
+    return torch.any(kept != prev)
+
+
+def _sweep_step(kept, prev, suppress, valid):
+    return _sweep(kept, suppress, valid), kept.clone()
+
+
 def _fixpoint_nms(boxes: torch.Tensor, scores: torch.Tensor,
                   classids: torch.Tensor, valid: torch.Tensor,
                   iou_thresh: float, max_det: int) -> torch.Tensor:
@@ -123,14 +150,11 @@ def _fixpoint_nms(boxes: torch.Tensor, scores: torch.Tensor,
         & (idx[:, None] < idx[None, :]))
     suppress = (iou > iou_thresh) & same_class & beats             # [B,j,i]
     valid = valid.bool()
-
-    def sweep(kept):
-        return valid & ~torch.any(suppress & kept[:, :, None], dim=1)
-
-    kept, prev = sweep(valid), valid
-    # host-checked loop (the JAX while_loop): one device sync per sweep
-    while bool(torch.any(kept != prev)):
-        kept, prev = sweep(kept), kept
+    # carried (kept, prev); the body returns fresh tensors (the operator
+    # rejects outputs that alias its inputs)
+    kept, _ = while_loop_op(_sweep_changed, _sweep_step,
+                            (_sweep(valid, suppress, valid), valid.clone()),
+                            (suppress, valid))
 
     kk = min(max_det, k)
     top_score, top_idx = _top_k(torch.where(kept, scores, _NEG_INF), kk)
@@ -215,12 +239,19 @@ def filter_candidates(conf: torch.Tensor, class_prob: torch.Tensor,
     whose shortlist underfilled take the exact full-candidate pass."""
     dets, shortfall = _shortlist_nms(conf, class_prob, coord_cxcywh,
                                      windows, cfg, obj_thresh)
-    # host-checked batch-level fallback (the JAX lax.cond): one device sync
-    if bool(torch.any(shortfall)):
+
+    # batch-level fallback (JAX's lax.cond): the full pass runs only when
+    # some image's shortlist fell short
+    def full_pass(conf, class_prob, coord_cxcywh, windows, dets, shortfall):
         full = _full_nms(conf, class_prob, coord_cxcywh, windows, cfg,
                          obj_thresh)
-        dets = torch.where(shortfall[:, None, None], full, dets)
-    return dets
+        return torch.where(shortfall[:, None, None], full, dets)
+
+    def keep(conf, class_prob, coord_cxcywh, windows, dets, shortfall):
+        return dets.clone()
+
+    return cond_op(torch.any(shortfall), full_pass, keep,
+                   (conf, class_prob, coord_cxcywh, windows, dets, shortfall))
 
 
 def filter_detections(preds: Sequence[ScalePrediction], windows: torch.Tensor,

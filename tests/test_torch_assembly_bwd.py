@@ -18,8 +18,8 @@ from dis_yolo_tpu.ops.pallas_assembly import (_assembly_bwd,
                                               assemble_masks_trainable as
                                               jax_trainable)
 from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_bwd_cuda,
-                                                  assemble_masks_batch_cuda,
                                                   assemble_masks_trainable)
+from dis_yolo_tpu_torch.ops.custom_ops import assemble_masks_batch_cuda
 from dis_yolo_tpu_torch.ops.mask_assembly import assemble_bwd_plain
 
 

@@ -16,10 +16,10 @@ import torch
 from dis_yolo_tpu.ops import mask_assembly as jax_ma
 from dis_yolo_tpu.ops.pallas_assembly import (_extract_planes,
                                               assemble_masks_pallas)
-from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_masks_batch_cuda,
-                                                  assemble_masks_cuda,
+from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_masks_cuda,
                                                   extract_planes_cuda,
                                                   extract_planes_plain)
+from dis_yolo_tpu_torch.ops.custom_ops import assemble_masks_batch_cuda
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -13,10 +13,10 @@ from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.models import api
 from dis_yolo_tpu_torch.ops import _build
 from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_bwd_cuda,
-                                                  assemble_masks_batch_cuda,
                                                   assemble_masks_cuda,
                                                   extract_planes_cuda)
-from dis_yolo_tpu_torch.ops.cuda_nms import nms_cuda
+from dis_yolo_tpu_torch.ops.custom_ops import (assemble_masks_batch_cuda,
+                                               nms_cuda)
 from dis_yolo_tpu_torch.train import train_step
 
 
@@ -62,7 +62,9 @@ def test_port_imports_no_jax():
                    "native/__init__.py", "train/checkpoint.py",
                    "train/solver.py", "train/tensorbundle.py",
                    "utils/timer.py", "utils/metrics_log.py",
-                   "utils/profiling.py", "utils/runtime.py", "cli.py"):
+                   "utils/profiling.py", "utils/runtime.py", "cli.py",
+                   # the serving export
+                   "export.py", "ops/custom_ops.py", "utils/visualize.py"):
         assert port / module in files, module
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -133,17 +135,35 @@ SERVING_GRAPH_FIELDS = ("deploy", "quant", "quant_calibrate", "s2d_stem",
     ("quant_calibrate", True), ("s2d_stem", True), ("remat", True),
     ("decoder_commute", True)])
 def test_unported_config_raises(field, value):
-    """A config that selects a graph the port lacks (use_pallas_assembly
-    False, remat) raises: it never runs as the plain default model.  The
-    five serving-graph fields are ported: such a config builds, serves
-    and passes check_ported, and check_trainable and the train entry
-    points refuse it (s2d_stem needs deploy=True, else ValueError as in
-    JAX)."""
+    """A config that selects a graph the port lacks (remat) raises: it
+    never runs as the plain default model.  The five serving-graph fields
+    are ported: such a config builds, serves and passes check_ported, and
+    check_trainable and the train entry points refuse it (s2d_stem needs
+    deploy=True, else ValueError as in JAX).  use_pallas_assembly=False
+    is ported: it serves the gather assembly (0.5 outside the box on
+    valid rows) and trains as the default does."""
     cfg = DISYoloConfig(image_size=64)
     bad = cfg.replace(**{field: value})
     raws = [np.zeros((1, g, g, 3, 8), np.float32) for g in cfg.grid_sizes()]
     raws.append(np.zeros((1, 32, 32, 9), np.float32))
     windows = np.array([[0.0, 0.0, 1.0, 1.0]], np.float32)
+    if field == "use_pallas_assembly":
+        bad.check_trainable()
+        model = api.create_model(bad, device="cpu")
+        assert callable(train_step.make_train_step(model, device="cpu"))
+        # threshold 0: every candidate passes, every logit is 0
+        dets, masks = api.predict_from_outputs(bad, raws, windows, 0.0,
+                                               device="cpu")
+        _, k1_masks = api.predict_from_outputs(cfg, raws, windows, 0.0,
+                                               device="cpu")
+        valid = dets[0, :, 5] > 0
+        assert 0 < int(valid.sum()) < 30
+        assert bool((masks[0][valid] == 0.5).all())
+        assert bool((masks[0][~valid] == 0).all())
+        inside = k1_masks[0][valid] != 0
+        assert bool((k1_masks[0][valid][inside] == 0.5).all())
+        assert bool((~inside).any()) and bool((k1_masks[0][~valid] == 0).all())
+        return
     if field in SERVING_GRAPH_FIELDS:
         with pytest.raises(NotImplementedError, match=field):
             bad.check_trainable()

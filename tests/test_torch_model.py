@@ -162,3 +162,20 @@ def test_config_copy_matches_jax_config():
         assert j.snapshot() == t.snapshot()
         np.testing.assert_array_equal(j.anchors_array(), t.anchors_array())
         assert t.replace(k_map=7).num_scoremaps == 49
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_ignores_the_batch_stride_of_one_image(dtype):
+    """A batch of one made with a numpy newaxis (batch stride 0) and the
+    same image in a row-major batch give the same bits: the forward takes
+    its input to row-major strides, so PyTorch picks the same conv
+    kernels for both (at float32 on the CPU they differed by ~1e-7)."""
+    model = api.init_model(DISYoloConfig(image_size=64, compute_dtype=dtype),
+                           7, device="cpu")
+    image = np.random.RandomState(0).rand(64, 64, 3).astype(np.float32)
+    assert torch.from_numpy(image[None]).stride(0) == 0
+    batch = np.zeros((1, 64, 64, 3), np.float32)
+    batch[0] = image
+    for a, b in zip(api.forward(model, image[None], device="cpu"),
+                    api.forward(model, batch, device="cpu")):
+        assert torch.equal(a, b)

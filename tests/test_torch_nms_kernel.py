@@ -12,7 +12,7 @@ import torch
 
 from dis_yolo_tpu.ops import nms as jax_nms
 from dis_yolo_tpu.ops.pallas_nms import nms_pallas
-from dis_yolo_tpu_torch.ops.cuda_nms import nms_cuda
+from dis_yolo_tpu_torch.ops.custom_ops import nms_cuda
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -21,8 +21,8 @@ from dis_yolo_tpu.ops.pallas_assembly import (_assembly_px,
 from dis_yolo_tpu.ops.pallas_nms import nms_pallas
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.ops import boxes, decode, mask_assembly, nms, paste
-from dis_yolo_tpu_torch.ops.cuda_assembly import assemble_masks_batch_cuda
-from dis_yolo_tpu_torch.ops.cuda_nms import nms_cuda
+from dis_yolo_tpu_torch.ops.custom_ops import (assemble_masks_batch_cuda,
+                                               nms_cuda)
 
 
 @pytest.fixture(scope="module", autouse=True)
