@@ -125,6 +125,33 @@ Phases (any failure exits non-zero before the last line is printed):
   (``utils.profiling.chain_scan_time``) and as device time (CUDA-graph
   replays).
 
+  Device-data training (after the Solver in phase 3, timed in phase 4):
+  on the card at 576^2, B=2, ``device_augment.augment_batch`` against
+  the CPU on the same draws with every flip and photometric branch
+  forced (flips, masks, boxes, grids exact, images within 1 LSB); the
+  Solver's train split decoded into a ``HostCorpus`` and uploaded
+  (``--out`` key ``device_data``, ``corpus``: bytes, build and upload
+  s); ``make_assemble_fn`` on the card against the CPU (exact grids and
+  boxes, images within 1 LSB) and against ``build_example(host_augs=
+  False)`` (masks but for knife edges); no host sync in assembly,
+  ``prepare_batch``, ``draw_augment`` and ``augment_batch`` (PyTorch's
+  sync debug mode, key ``host_syncs_assemble_augment``); a K=3 stage-1
+  block through
+  ``make_corpus_multi_step`` against three single steps under
+  deterministic algorithms (bit-equal); a float32 ``grad_accum=2``
+  step against the CPU's (metrics, the score-map head's gradient, BN
+  statistics); a stage-2 step with ``remat`` against one without (the
+  same metrics and statistics, each step's peak memory); then ``cli
+  train --device-corpus --steps-per-dispatch 3`` stage 1 for 6 steps (a
+  checkpoint every 3) and a resume to step 9 (launch path
+  ``device_data``).  Phase 4 (``device_data_timing``): the Solver's
+  wall, ``train_timer`` and ``load_timer`` per step (30 steps, two
+  passes) and the bytes sent to the card per step for the wire loader
+  at K=1 and K=3 and the corpus at K=3; the device time of the corpus
+  step's data work by part (assembly, its image and mask placement and
+  grids, ``prepare_batch``, ``augment_batch``); remat and plain stage-2
+  steps timed under the default cuDNN and TF32 settings.
+
   The serving export (after the Solver in phase 3, timed in phase 4):
   the deploy graph exported (``export.export_predict``) at B=1 and at a
   dynamic batch, the deploy graph with ``use_pallas_nms`` at B=1 and
@@ -166,7 +193,8 @@ The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
 Each kernel's ``launches`` is the sum over the serving path, the
 training path, the serving graphs' path, the eval path, the Solver's
-path and the export path (its live predicts here and the loaded
+path, the device-data path (the ``--device-corpus`` command) and the
+export path (its live predicts here and the loaded
 artifacts' calls in their process), and ``launches_by_path``
 holds each path's own count (each read from its run, with the counters
 set to 0 just before it).  Only K4 has a single PyTorch call computing
@@ -1159,6 +1187,527 @@ def solver_timing_run(np, torch, m, root, cfg, state_dict, device="cuda", steps=
     out["forward_device_ms_b1_by_stage"] = by_stage(device_cuts)
     return out
 
+# the device-data training phase: the P6 split of solver_split, on-card
+# augmentation and corpus assembly, K-step blocks, grad_accum, remat and
+# the command with --device-corpus
+def device_data_modules():
+    """The on-device training data path and the training knobs, as one
+    namespace."""
+    from dis_yolo_tpu_torch import cli
+    from dis_yolo_tpu_torch.config import DISYoloConfig
+    from dis_yolo_tpu_torch.data import dataset, device_augment, device_corpus
+    from dis_yolo_tpu_torch.losses.mask_loss import draw_uniforms
+    from dis_yolo_tpu_torch.models import api
+    from dis_yolo_tpu_torch.train import checkpoint as ckpt
+    from dis_yolo_tpu_torch.train import solver as solver_mod
+    from dis_yolo_tpu_torch.train import train_step as ts
+    from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
+    return types.SimpleNamespace(**locals())
+
+
+def to_dev(torch, batch, dev):
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v)).to(dev)
+            for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms and cuDNN (cuBLAS's workspace is pinned by
+    CUBLAS_WORKSPACE_CONFIG, set before the card is first used)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def wire_batch(np, synthetic_batch, cfg, seed=0):
+    """A seeded synthetic batch in the loader's wire format (uint8 images,
+    packed masks)."""
+    b, t = cfg.batch_size, cfg.max_box_per_image
+    batch = synthetic_batch(cfg, b, 3, seed=seed)
+    wire = dict(batch, images=(batch["images"] * 255).astype(np.uint8))
+    wire["masks_packed"] = np.packbits(
+        wire.pop("true_masks").reshape(b, t, -1), axis=-1)
+    return wire
+
+
+def check_augment(np, torch, m, cfg, wire, dev="cuda"):
+    """``augment_batch`` on the card against the CPU on the same draws
+    (drawn on the card, copied across), every flip and photometric branch
+    forced in turn: flips, masks, boxes and grids exact, images within 1
+    LSB.  Returns the record."""
+    card = m.ts.prepare_batch(to_dev(torch, wire, dev))
+    cpu = {k: v.cpu() for k, v in card.items()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lsb, off, total = 0.0, 0, 0
+    for r in range(4):
+        draws = m.device_augment.draw_augment(gen, 2, cfg.image_size)
+        draws["flip"] = torch.tensor([1 + r % 3, 1 + (r + 1) % 3], device=dev)
+        draws["bnl"] = torch.tensor([1 + r, 1 + (r + 2) % 4], device=dev)
+        got = m.device_augment.augment_batch(card, draws, cfg.image_size)
+        want = m.device_augment.augment_batch(
+            cpu, {k: v.cpu() for k, v in draws.items()}, cfg.image_size)
+        for k in want:
+            if k != "images":
+                need(torch.equal(got[k].cpu(), want[k]),
+                     f"augment card vs CPU: {k} differs (round {r})")
+        d = (got["images"].cpu() - want["images"]).abs() * 255
+        lsb = max(lsb, float(d.max()))
+        off += int((d > 0.5).sum())
+        total += d.numel()
+    need(lsb <= 1.0 + 1e-3, f"augment card vs CPU: images off by {lsb} LSB")
+    return {"max_lsb": lsb, "pixels_off": off, "pixels": total}
+
+
+def check_assemble(np, torch, m, cfg, data, corpus_card, corpus_cpu, wire_loader,
+                   dev="cuda"):
+    """``make_assemble_fn`` on the card against the CPU on the same
+    decisions (grids, boxes and windows exact, images within 1 LSB), and
+    against ``build_example(host_augs=False)`` batches (the same, masks
+    but for knife edges).  Returns the record."""
+    assemble = m.device_corpus.make_assemble_fn(cfg)
+    rec = {"img_max_lsb_cpu": 0, "img_max_lsb_wire": 0, "img_off_wire": 0,
+           "mask_off_cpu": 0, "mask_off_wire": 0, "mask_pixels": 0, "pixels": 0}
+    for _ in range(3):
+        p = data._make_batch()
+        got = {k: v.cpu() for k, v in assemble(corpus_card, to_dev(torch, p, dev)).items()}
+        ref = assemble(corpus_cpu, to_dev(torch, p, "cpu"))
+        wire = m.dataset.expand_batch(wire_loader._make_batch())
+        for k in ("true_boxes", "labels_s8", "labels_s16", "labels_s32", "windows"):
+            need(torch.equal(got[k], ref[k]), f"assemble card vs CPU: {k} differs")
+            need(np.array_equal(got[k].numpy(), wire[k]),
+                 f"assemble card vs build_example: {k} differs")
+        img = got["images"].numpy().astype(np.int16)
+        d_cpu = np.abs(img - ref["images"].numpy().astype(np.int16))
+        d_wire = np.abs(img - np.round(wire["images"] * 255).astype(np.int16))
+        rec["img_max_lsb_cpu"] = max(rec["img_max_lsb_cpu"], int(d_cpu.max()))
+        rec["img_max_lsb_wire"] = max(rec["img_max_lsb_wire"], int(d_wire.max()))
+        rec["img_off_wire"] += int((d_wire > 0).sum())
+        rec["pixels"] += img.size
+        msk = got["true_masks"].numpy()
+        rec["mask_off_cpu"] += int((msk != ref["true_masks"].numpy()).sum())
+        rec["mask_off_wire"] += int((msk != wire["true_masks"]).sum())
+        rec["mask_pixels"] += msk.size
+    need(rec["img_max_lsb_cpu"] <= 1 and rec["img_max_lsb_wire"] <= 1,
+         f"assembled images off by more than 1 LSB: {rec}")
+    need(rec["mask_off_cpu"] <= 1e-4 * rec["mask_pixels"]
+         and rec["mask_off_wire"] <= 1e-3 * rec["mask_pixels"],
+         f"assembled masks differ beyond knife edges: {rec}")
+    return rec
+
+
+def count_syncs(np, torch, m, cfg, data, corpus_card, dev="cuda"):
+    """Host syncs of the device-data path's own work on one batch whose
+    decisions are already on the card: assemble, prepare, draw and
+    augment (the step's three syncs are older), counted by PyTorch's
+    sync debug mode after a warm call."""
+    import warnings
+    p = to_dev(torch, data._make_batch(), dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    assemble = m.device_corpus.make_assemble_fn(cfg)
+
+    def work():
+        batch = m.ts.prepare_batch(assemble(corpus_card, p))
+        draws = m.device_augment.draw_augment(gen, cfg.batch_size, cfg.image_size)
+        return m.device_augment.augment_batch(batch, draws, cfg.image_size)
+
+    work()
+    if dev != "cuda":
+        return "not measured"
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            work()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message)[:120] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    need(not syncs, f"the device-data path synchronizes with the host: {syncs[:3]}")
+    return len(syncs)
+
+
+def check_corpus_block(np, torch, m, cfg, data, corpus_card, state_dict, dev="cuda"):
+    """A K=3 stage-1 block through ``make_corpus_multi_step`` against three
+    single steps from the same state and generators, under deterministic
+    algorithms: weights, moments and metrics bit-equal."""
+    params = [data._make_batch() for _ in range(3)]
+    assemble = m.device_corpus.make_assemble_fn(cfg)
+    models = []
+    for _ in range(2):
+        net = m.api.create_model(cfg, device=dev)
+        net.load_state_dict(state_dict)
+        models.append(net)
+    gens = [(torch.Generator().manual_seed(6),
+             torch.Generator(device=dev).manual_seed(7)) for _ in range(2)]
+    with deterministic(torch):
+        s1 = m.ts.init_train_state(models[0], device=dev)
+        step = m.ts.make_train_step(models[0], device=dev)
+        rows = []
+        for p in params:
+            s1, met = step(s1, assemble(corpus_card, to_dev(torch, p, dev)), *gens[0])
+            rows.append(met)
+        s2 = m.ts.init_train_state(models[1], device=dev)
+        block = {k: np.stack([p[k] for p in params]) for k in params[0]}
+        s2, stacked = m.ts.make_corpus_multi_step(models[1], device=dev)(
+            s2, corpus_card, block, *gens[1])
+        torch.cuda.synchronize()
+    sd1, sd2 = models[0].state_dict(), models[1].state_dict()
+    differ = [k for k in sd1 if not sd1[k].equal(sd2[k])]
+    need(not differ, f"corpus block vs 3 steps: {len(differ)} entries differ, "
+                     f"e.g. {differ[:3]}")
+    need(all(s1.opt.mu[k].equal(s2.opt.mu[k]) for k in s1.opt.mu),
+         "corpus block vs 3 steps: Adam moments differ")
+    need(all(torch.equal(stacked[k], torch.stack([r[k] for r in rows])) for k in stacked),
+         "corpus block vs 3 steps: metrics differ")
+    need(all(bool(torch.isfinite(v).all()) for v in stacked.values()),
+         "corpus block: non-finite metrics")
+    return {"steps": 3, "total_loss": stacked["total_loss"].tolist()}
+
+
+def check_grad_accum(np, torch, m, cfg, wire, state_dict, dev="cuda"):
+    """A float32 ``grad_accum=2`` step's averaged metrics, score-map head
+    gradient and BN statistics, card (K1/K3, TF32 off) against the CPU,
+    with the same uniforms and no proposals (the ROIs are the GT boxes),
+    at the f32 train check's tolerances."""
+    c32 = cfg.replace(compute_dtype="float32", locked_layers=(), obj_threshold=1.0,
+                      grad_accum=2, device_side_augs=False, device_corpus=False)
+    u_prop, u_gt = m.draw_uniforms(torch.Generator().manual_seed(3), c32.batch_size,
+                                   c32.max_detection, c32.max_box_per_image, "cpu")
+    out = {}
+    for d in (dev, "cpu"):
+        net = m.api.create_model(c32, device=d)
+        net.load_state_dict(state_dict)
+        net.requires_grad_(False)
+        head = [net.convolutional82.conv.weight, net.convolutional82.conv.bias]
+        for p_ in head:
+            p_.requires_grad_(True)
+        batch = m.ts.prepare_batch(to_dev(torch, wire, d))
+        grads, mets = m.ts.grads_and_aux(net, batch, u_prop.to(d), u_gt.to(d), head)
+        stats = {k: v.cpu() for k, v in net.state_dict().items() if "running" in k}
+        out[d] = ({k: float(v) for k, v in mets.items()}, [g.cpu() for g in grads],
+                  stats)
+        del net
+    (mc, gc, sc), (mr, gr, sr) = out[dev], out["cpu"]
+    loss_rel = abs(mc["total_loss"] - mr["total_loss"]) / abs(mr["total_loss"])
+    mask_rel = abs(mc["mask_loss"] - mr["mask_loss"]) / abs(mr["mask_loss"])
+    grad_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(gc, gr))
+    stat_err = max(float((sc[k] - sr[k]).abs().max()) / max(1.0, float(sr[k].abs().max()))
+                   for k in sr)
+    need(mr["mask_loss"] > 0, "grad_accum check: no positive ROI")
+    need(loss_rel <= 1e-2 and mask_rel <= 1e-4 and grad_err <= 1e-3 and stat_err <= 1e-3,
+         f"grad_accum=2 card vs CPU: total rel {loss_rel}, mask rel {mask_rel}, "
+         f"head grad rel {grad_err}, stats rel {stat_err}")
+    return {"total_loss_rel": loss_rel, "mask_loss_rel": mask_rel,
+            "head_grad_rel": grad_err, "bn_stats_rel": stat_err}
+
+
+def check_remat(np, torch, m, cfg, wire, state_dict, dev="cuda", steps=5):
+    """One stage-2 step with ``remat`` against one without, from the same
+    state, batch and generator (bf16, deterministic cuDNN): the same
+    metrics and BN statistics; the peak device memory of each step above
+    what was allocated before it.  Then each is timed under PyTorch's
+    default cuDNN and TF32 settings (those of a training run): ``steps``
+    steps after 2 warm ones, in two passes (plain, remat, plain, remat),
+    with each pass's peak memory."""
+    rec = {}
+    states = {}
+    for remat in (False, True):
+        net = m.api.create_model(cfg.replace(locked_layers=(), remat=remat,
+                                             device_side_augs=False,
+                                             device_corpus=False), device=dev)
+        net.load_state_dict(state_dict)
+        st, step = m.ts.init_train_state(net, dev), m.ts.make_train_step(net, dev)
+        batch = to_dev(torch, wire, dev)
+        step(st, batch, torch.Generator().manual_seed(4))     # warm (cuDNN plans)
+        net.load_state_dict(state_dict)
+        st = m.ts.init_train_state(net, dev)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            st, met = step(st, batch, torch.Generator().manual_seed(5))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+        states[remat] = ({k: float(v) for k, v in met.items()},
+                         {k: v.clone() for k, v in net.state_dict().items()})
+        rec["remat" if remat else "plain"] = {"peak_above_before_gb": peak / 1e9}
+        del net, st, step
+        torch.cuda.empty_cache()
+    (m0, s0), (m1, s1) = states[False], states[True]
+    need(m0 == m1, f"remat step metrics differ: {m0} vs {m1}")
+    stats = [k for k in s0 if "running" in k]
+    need(all(s0[k].equal(s1[k]) for k in stats), "remat step moved the BN statistics "
+         "differently")
+    rec["param_max_abs_diff"] = max(float((s0[k] - s1[k]).abs().max())
+                                    for k in s0 if "running" not in k
+                                    and "num_batches" not in k)
+    rec["total_loss"] = m0["total_loss"]
+    timing = {"steps": steps, "plain": [], "remat": []}
+    batch = to_dev(torch, wire, dev)
+    for remat in (False, True, False, True):
+        net = m.api.create_model(cfg.replace(locked_layers=(), remat=remat,
+                                             device_side_augs=False,
+                                             device_corpus=False), device=dev)
+        net.load_state_dict(state_dict)
+        st, step = m.ts.init_train_state(net, dev), m.ts.make_train_step(net, dev)
+        gen = torch.Generator().manual_seed(4)
+        for _ in range(2):
+            st, _ = step(st, batch, gen)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, met = step(st, batch, gen)
+        torch.cuda.synchronize()
+        timing["remat" if remat else "plain"].append({
+            "ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+            "peak_above_before_gb": (torch.cuda.max_memory_allocated() - before) / 1e9})
+        need(np.isfinite(float(met["total_loss"])), "remat timing: non-finite loss")
+        del net, st, step
+        torch.cuda.empty_cache()
+    rec["timing_default_settings"] = timing
+    return rec
+
+
+def device_data_phase(np, torch, m, root, state_dict, size=576, dev="cuda"):
+    """The device-data training phase on the split of ``solver_split``
+    under ``root``: ``check_augment``, the corpus (host build, upload,
+    ``check_assemble``), ``check_corpus_block``, ``check_grad_accum`` and
+    ``check_remat`` (``device_data_command`` runs the command).  Fails
+    unless every check holds.  Returns the record."""
+    cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size,
+                          device_side_augs=True, device_corpus=True,
+                          steps_per_dispatch=3)
+    rec = {}
+    wire = wire_batch(np, m.synthetic_batch, cfg)
+    rec["augment_card_vs_cpu"] = check_augment(np, torch, m, cfg, wire, dev)
+    t0 = time.perf_counter()
+    data = m.device_corpus.CorpusTrainData(cfg, "train", seed=5)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus_card = m.device_corpus.upload_corpus(data.corpus, dev)
+    torch.cuda.synchronize()
+    rec["corpus"] = {"images": data.corpus.n, "hw_max": list(data.corpus.hw_max),
+                     "host_bytes": data.corpus.nbytes(),
+                     "uploaded_bytes": sum(v.numel() * v.element_size()
+                                           for v in corpus_card.values()),
+                     "build_s": build_s, "upload_s": time.perf_counter() - t0}
+    corpus_cpu = m.device_corpus.upload_corpus(data.corpus, "cpu")
+    wire_loader = m.dataset.DefectTrainData(cfg, "train", seed=5, host_augs=False)
+    rec["assemble_card_vs_cpu_and_wire"] = check_assemble(
+        np, torch, m, cfg, data, corpus_card, corpus_cpu, wire_loader, dev)
+    del corpus_cpu
+    rec["host_syncs_assemble_augment"] = count_syncs(np, torch, m, cfg, data,
+                                                     corpus_card, dev)
+    rec["corpus_block_vs_steps"] = check_corpus_block(np, torch, m, cfg, data,
+                                                      corpus_card, state_dict, dev)
+    rec["grad_accum_card_vs_cpu"] = check_grad_accum(np, torch, m, cfg, wire, state_dict,
+                                                      dev)
+    rec["remat_stage2"] = check_remat(np, torch, m, cfg, wire, state_dict, dev)
+    del corpus_card
+    torch.cuda.empty_cache()
+    print("device-data checks: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def device_data_command(np, torch, m, root, size=576, dev="cuda"):
+    """``cli train --device-corpus --steps-per-dispatch 3`` stage 1 for 6
+    steps (a checkpoint every 3, no validation), then a resume to step 9.
+    Fails unless every logged loss is finite, layers 1-52 are unchanged,
+    the resume starts from the step-6 checkpoint bit for bit and reaches
+    step 9.  Returns {"command": record}."""
+    cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size)
+    out = os.path.join(root, "corpus_run")
+    common = ["--dataset", root, "--image-size", str(size), "--batch-size", "2",
+              "--summary-iter", "1", "--save-iter", "3", "--device", dev,
+              "--output-dir", out, "--no-validation", "--device-corpus",
+              "--steps-per-dispatch", "3"]
+    entry, solvers = [], []
+    real_train = m.solver_mod.Solver.train
+
+    def train(self, max_iter=None):
+        entry.append(host_state(torch, self))
+        state = real_train(self, max_iter)
+        solvers.append(self)
+        return state
+
+    m.solver_mod.Solver.train = train
+    try:
+        m.cli.main(["train", "--stage", "1", "--max-iter", "6"] + common)
+        ckpt_dir = os.path.join(out, "checkpoint")
+        steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+        saved6 = torch.load(os.path.join(ckpt_dir, "step_00000006", "state"),
+                            weights_only=True)
+        m.cli.main(["train", "--stage", "1", "--max-iter", "9", "--restore", "auto"]
+                   + common)
+    finally:
+        m.solver_mod.Solver.train = real_train
+    need(steps == ["step_00000003", "step_00000006"], f"corpus run checkpoints: {steps}")
+    need(all(s.device_corpus is not None and s.cfg.device_side_augs for s in solvers),
+         "the command did not run on the device corpus")
+    need([s.train_timer.calls for s in solvers] == [2, 1],
+         f"blocks per run: {[s.train_timer.calls for s in solvers]}, expected [2, 1]")
+    end1 = host_state(torch, solvers[0])
+    locked = [k for k in entry[0]["model"] if m.ts.layer_id(k) in cfg.locked_layers]
+    need(locked and all(entry[0]["model"][k].equal(end1["model"][k]) for k in locked),
+         "the corpus run moved a locked layer (1-52)")
+    need(tensors_equal(end1["model"], saved6["model"]),
+         "the corpus run's final state differs from its step-6 checkpoint")
+    r = entry[1]
+    need(r["step"] == 6 and tensors_equal(r["model"], saved6["model"])
+         and tensors_equal(r["mu"], saved6["mu"]) and tensors_equal(r["nu"], saved6["nu"]),
+         "the corpus resume differs from the step-6 checkpoint")
+    need(solvers[1].state.step == 9, "the corpus resume did not reach step 9")
+    with open(os.path.join(ckpt_dir, "train_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"train"' in line]
+    need([r_["step"] for r_ in rows] == list(range(1, 10)),
+         f"corpus run rows: {[r_['step'] for r_ in rows]}")
+    need(all(np.isfinite(v) for r_ in rows for k, v in r_.items()
+             if k not in ("ts", "kind")), "a logged corpus-run metric is not finite")
+    record = {"checkpoints": steps, "blocks": [2, 1],
+              "train_losses": [r_["total_loss"] for r_ in rows],
+              "locked_entries_unchanged": len(locked)}
+    del solvers, entry, saved6
+    torch.cuda.empty_cache()
+    return {"command": record}
+
+
+def device_data_parts(np, torch, m, cfg, data, corpus, dev="cuda"):
+    """Device ms per call (``graph_ms``, CUDA-graph replays) of the corpus
+    step's data work on one batch's decisions at the main path's shapes:
+    the whole assembly and its parts (``_taps``, the image placement, the
+    mask placement on the corpus's mask words, the label grids), the mask
+    placement of this slice's first design (every packed mask unpacked,
+    resized through ``_resize_place`` and rounded; held equal to
+    ``_place_masks`` first), ``prepare_batch``
+    and ``augment_batch`` on fixed draws; ``draw_augment`` by CUDA events
+    over 20 calls (its generator stays out of the graph)."""
+    dc = m.device_corpus
+    p = to_dev(torch, data._make_batch(), dev)
+    size = cfg.image_size
+    idx = p["idx"].long()
+    imgs, words = corpus["images"][idx], corpus["mask_words"][idx]
+    packed = torch.from_numpy(data.corpus.masks_packed).to(dev)[idx]
+    hws = corpus["sizes"][idx].long()
+    new_h, new_w, dy, dx = p["place"].long().unbind(-1)
+    b, t = packed.shape[:2]
+    hm, wm = imgs.shape[1], imgs.shape[2]
+
+    def taps():
+        return dc._taps(hws[:, 0], hws[:, 1], new_h, new_w, dy, dx, size)
+
+    tp = taps()
+
+    def unpacked_masks():
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+        bits = torch.bitwise_right_shift(packed[..., None], shifts) & 1
+        masks = bits.reshape(b, t, -1)[:, :, :hm * wm].reshape(b, t, hm, wm)
+        placed = dc._resize_place(masks.permute(0, 2, 3, 1), tp, 0.0)
+        return torch.round(placed).permute(0, 3, 1, 2).bool()
+
+    need(torch.equal(unpacked_masks(), dc._place_masks(words, t, tp)),
+         "mask placement differs from the unpacked resize on the card")
+    assemble = dc.make_assemble_fn(cfg)
+    batch = assemble(corpus, p)
+    prepared = m.ts.prepare_batch(batch)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    draws = m.device_augment.draw_augment(gen, b, size)
+    anchors = torch.as_tensor(np.asarray(cfg.anchors_array(), np.float32), device=dev)
+    parts = {
+        "assemble": lambda: assemble(corpus, p),
+        "taps": taps,
+        "place_images": lambda: dc._resize_place(imgs, tp, 127.0),
+        "place_masks": lambda: dc._place_masks(words, t, tp),
+        "place_masks_first_design": unpacked_masks,
+        "grids": lambda: dc._grids(p["true_box_px"], p["true_box"], p["nvalid"],
+                                   anchors, cfg.base_grid, cfg.anchors_per_scale,
+                                   cfg.num_class, float(size)),
+        "prepare_batch": lambda: m.ts.prepare_batch(batch),
+        "augment_batch": lambda: m.device_augment.augment_batch(prepared, draws, size),
+    }
+    rec = {name: graph_ms(torch, fn, n=5, reps=4) for name, fn in parts.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(20):
+        m.device_augment.draw_augment(gen, b, size)
+    stop.record()
+    torch.cuda.synchronize()
+    rec["draw_augment_events"] = start.elapsed_time(stop) / 20
+    return rec
+
+
+def device_data_timing(np, torch, m, root, state_dict, size=576, steps=30, passes=2,
+                       dev="cuda"):
+    """Phase 4's numbers of the device-data path: the Solver's wall,
+    ``train_timer`` and ``load_timer`` per step for the wire loader one
+    step at a time and in blocks of 3, and the device corpus in blocks of
+    3: each route warmed for 3 steps, then timed over ``steps`` steps (no
+    validation) ``passes`` times, the routes in turn within each pass
+    (the figure is the mean of the passes, ``spread`` their max/min - 1);
+    a profiler window of 3 more steps of each (device busy time, idle
+    share, launches); the bytes copied to the card per step, and the
+    corpus's; and ``device_data_parts`` on the corpus route's batch."""
+    out = {}
+    base = m.DISYoloConfig(dataset=root, image_size=size, test_size=size,
+                           save_iter=999999, summary_iter=999999)
+    routes = {"wire_k1": {}, "wire_k3": {"steps_per_dispatch": 3},
+              "corpus_k3": {"steps_per_dispatch": 3, "device_corpus": True,
+                            "device_side_augs": True}}
+    solvers = {}
+    for key, kw in routes.items():
+        scfg = base.replace(output_dir=os.path.join(root, f"timing_{key}"), **kw)
+        solver = m.solver_mod.Solver(scfg, seed=0, device=dev)
+        solver.model.load_state_dict(state_dict)
+        solver.train(max_iter=3)
+        solvers[key] = solver
+        out[key] = {"steps": steps, "passes": []}
+    for _ in range(passes):
+        for key, solver in solvers.items():
+            solver.load_timer, solver.train_timer = type(solver.load_timer)(), \
+                type(solver.train_timer)()
+            t0 = time.perf_counter()
+            solver.train(max_iter=solver.state.step + steps)
+            out[key]["passes"].append({
+                "wall_s_per_step": (time.perf_counter() - t0) / steps,
+                "train_timer_s_per_step": solver.train_timer.total_time / steps,
+                "load_timer_s_per_step": solver.load_timer.total_time / steps})
+    for key, solver in solvers.items():
+        rec = out[key]
+        for name in ("wall_s_per_step", "train_timer_s_per_step",
+                     "load_timer_s_per_step"):
+            vals = [p_[name] for p_ in rec["passes"]]
+            rec[name] = sum(vals) / len(vals)
+        walls = [p_["wall_s_per_step"] for p_ in rec["passes"]]
+        rec["wall_spread"] = max(walls) / min(walls) - 1
+        # three more steps (one block) in a profiler window: the device's
+        # busy time, against the unprofiled wall for the idle share
+        trace = profile_window(torch, lambda: solver.train(max_iter=solver.state.step + 3),
+                               1, rec["wall_s_per_step"] * 3e3)
+        rec["trace_3_steps"] = {k: trace[k] for k in (
+            "wall_us_per_call_profiled", "device_busy_us_per_call", "device_idle_share",
+            "kernel_launches_per_call", "device_us_by_kind")}
+        sample = solver.data.get()
+        rec["bytes_to_card_per_step"] = int(sum(v.nbytes for v in sample.values()))
+        if solver.device_corpus is not None:
+            rec["corpus_bytes_on_card"] = int(sum(
+                v.numel() * v.element_size() for v in solver.device_corpus.values()))
+            out["corpus_parts_device_ms"] = device_data_parts(
+                np, torch, m, solver.cfg, solver.data, solver.device_corpus, dev)
+    del solvers, solver
+    torch.cuda.empty_cache()
+    return out
+
+
 # the serving export: four artifacts of the serving graphs at 576^2, each
 # with the batches it serves, and the CLI's commands on the Solver's split
 EXPORT_BATCHES = (1, 2, 3)
@@ -1778,6 +2327,9 @@ def main() -> None:
     parser.add_argument("--artifact-worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
+    # a fixed cuBLAS workspace, so that the device-data phase can run
+    # under deterministic algorithms; set before the card is first used
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -1983,10 +2535,7 @@ def main() -> None:
     # proposals reach the mask loss at random init, as a trained net's do
     tcfg = cfg.replace(obj_threshold=thresh)
     bsz, n_gt = tcfg.batch_size, tcfg.max_box_per_image
-    batch_np = synthetic_batch(tcfg, bsz, 3, seed=0)
-    wire = dict(batch_np, images=(batch_np["images"] * 255).astype(np.uint8))
-    wire["masks_packed"] = np.packbits(
-        wire.pop("true_masks").reshape(bsz, n_gt, -1), axis=-1)
+    wire = wire_batch(np, synthetic_batch, tcfg)
     tbatch = {k: torch.from_numpy(v).cuda() for k, v in wire.items()}
     trainer1 = api.create_model(tcfg)
     trainer1.load_state_dict(model.state_dict())
@@ -2239,6 +2788,28 @@ def main() -> None:
     print("Solver run: " + json.dumps(solver_record), flush=True)
     print(f"Solver run done at {time.time() - t_start:.0f} s", flush=True)
 
+    # device-data training: on-card augmentation and corpus assembly
+    # against the CPU, K-step blocks, grad_accum, remat, and the command
+    # with --device-corpus on the Solver's split (its launches are the
+    # path's)
+    dd = device_data_modules()
+    dd_record = device_data_phase(np, torch, dd, sroot, model.state_dict())
+    custom_ops.assemble_masks_batch_cuda.launches = 0
+    cuda_assembly.assemble_bwd_cuda.launches = 0
+    cuda_assembly.extract_planes_cuda.launches = 0
+    custom_ops.nms_cuda.launches = 0
+    dd_record.update(device_data_command(np, torch, dd, sroot))
+    torch.cuda.synchronize()
+    dd_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
+                   "K2": custom_ops.nms_cuda.launches,
+                   "K3": cuda_assembly.assemble_bwd_cuda.launches,
+                   "K4": cuda_assembly.extract_planes_cuda.launches}
+    print(f"device-data path launches: {dd_launches}", flush=True)
+    need(dd_launches["K1"] > 0 and dd_launches["K3"] > 0,
+         f"a kernel of the device-data path never launched: {dd_launches}")
+    print("device-data command: " + json.dumps(dd_record["command"]), flush=True)
+    print(f"device-data training done at {time.time() - t_start:.0f} s", flush=True)
+
     # the serving export: artifacts saved, loaded in a fresh process and
     # run there; cli infer / export / verify-gt on the Solver's split
     xm = export_modules()
@@ -2317,6 +2888,21 @@ def main() -> None:
               f"train_timer {t['train_timer_s_per_step']:.4f}, load_timer "
               f"{t['load_timer_s_per_step']:.4f} s/step; {smi_line}", flush=True)
     print("Solver timing: " + json.dumps(solver_times), flush=True)
+    print(f"phase 4 Solver timing done at {time.time() - t_start:.0f} s", flush=True)
+    dd_times = device_data_timing(np, torch, dd, sroot, model.state_dict())
+    print(f"phase 4 device-data timing done at {time.time() - t_start:.0f} s", flush=True)
+    for key, t in dd_times.items():
+        if key == "corpus_parts_device_ms":
+            print(f"device-data corpus parts, device ms per call ({smi_line}): "
+                  + json.dumps(t), flush=True)
+            continue
+        print(f"device-data {key} B=2: wall {t['wall_s_per_step']:.4f} s/step "
+              f"(passes {[round(p_['wall_s_per_step'], 4) for p_ in t['passes']]}, "
+              f"{t['steps']} steps each), train_timer "
+              f"{t['train_timer_s_per_step']:.4f}, load_timer "
+              f"{t['load_timer_s_per_step']:.4f} s/step, "
+              f"{t['bytes_to_card_per_step']} B to the card per step; {smi_line}",
+              flush=True)
 
     # the serving export: export s and MB per artifact, loaded vs live
     # predict ms, infer ms per image end to end
@@ -2576,6 +3162,7 @@ def main() -> None:
                    "serving_graphs": graph_launches[name],
                    "eval": eval_launches[name],
                    "solver": solver_launches[name],
+                   "device_data": dd_launches[name],
                    "export": export_launches[name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -2650,6 +3237,9 @@ def main() -> None:
                        "launches_solver_path": solver_launches,
                        "solver_run": solver_record,
                        "solver_timing": solver_times,
+                       "launches_device_data_path": dd_launches,
+                       "device_data": dd_record,
+                       "device_data_timing": dd_times,
                        "launches_export_path": export_launches,
                        "export_path": export_record,
                        "export_timing": export_times,

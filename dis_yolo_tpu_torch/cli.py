@@ -9,9 +9,10 @@
 The subcommands take the JAX CLI's flags, plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path on the CPU, and
 without a card nothing falls back to it); ``export`` takes ``--device``
-in place of ``--platforms``.  ``train --data-parallel``,
-``--steps-per-dispatch > 1`` and ``--device-corpus`` exit with a "not
-ported yet" error.  ``preprocess`` and ``synth`` need OpenCV.
+in place of ``--platforms``.  ``train --data-parallel`` and ``eval
+--data-parallel`` exit with a "not ported yet" error.  ``train
+--device-corpus`` implies the device-side augs, as in the JAX CLI.
+``preprocess`` and ``synth`` need OpenCV.
 
 ``infer`` and ``verify-gt`` write their overlays as ``<stem>.png``
 (``data.image_io.write_png``: the card's machine has neither OpenCV nor
@@ -77,16 +78,17 @@ def cmd_train(args):
     from dis_yolo_tpu_torch.eval.map_eval import Evaluator
     from dis_yolo_tpu_torch.train.solver import Solver
 
-    for flag, asked in (("--data-parallel", args.data_parallel),
-                        ("--steps-per-dispatch > 1",
-                         args.steps_per_dispatch > 1),
-                        ("--device-corpus", args.device_corpus)):
-        if asked:
-            raise SystemExit(f"error: train {flag} is not ported yet to "
-                             "dis_yolo_tpu_torch (ROADMAP queue A)")
+    if args.data_parallel:
+        raise SystemExit("error: train --data-parallel is not ported yet to "
+                         "dis_yolo_tpu_torch (ROADMAP queue A)")
     locked = tuple(range(1, 53)) if args.stage == 1 else ()
+    extra = {}
+    if args.device_corpus:
+        # the pixels live on the device: the augs run there too
+        extra.update(device_corpus=True, device_side_augs=True)
     cfg = _make_cfg(args, locked_layers=locked, max_iter=args.max_iter,
-                    save_iter=args.save_iter, summary_iter=args.summary_iter)
+                    save_iter=args.save_iter, summary_iter=args.summary_iter,
+                    steps_per_dispatch=args.steps_per_dispatch, **extra)
     evaluator = val = None
     if not args.no_validation:
         evaluator = Evaluator(cfg, "val")
@@ -380,9 +382,12 @@ def main(argv=None):
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported yet")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="K > 1 is not ported yet")
+                   help="train steps per block (snapped to a divisor of "
+                        "--save-iter)")
     p.add_argument("--device-corpus", action="store_true",
-                   help="not ported yet")
+                   help="decoded split resident on the device; the host "
+                        "ships placement decisions only (implies the "
+                        "device-side augs)")
     p.add_argument("--no-validation", action="store_true")
     p.set_defaults(fn=cmd_train)
 

@@ -4,9 +4,9 @@ A copy of ``dis_yolo_tpu/config.py`` (the port imports nothing of the JAX
 package): the same frozen dataclass with the same field names, defaults
 and properties, so the JAX reference and the port are built from the same
 keyword arguments.  The comments describe what each knob means in the
-port; knobs the port does not read yet (mesh, data pipeline, some
-training knobs) are kept for that parity and documented in the JAX
-package's copy.
+port; the knobs of the data-parallel layer it does not have yet
+(``dp_axis``, ``bn_axis``) are kept for that parity and documented in the
+JAX package's copy.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ class DISYoloConfig:
     )
     anchors_per_scale: int = 3
 
-    # ---- augmentation toggles (not read by the port yet) --------------------
+    # ---- augmentation toggles (host loader, or device_side_augs) ----------
     flipped: bool = True
     blur_noise_light: bool = True
 
@@ -109,22 +109,27 @@ class DISYoloConfig:
     # conv1 + conv2 rewritten exactly as 12->128 3x3 and 128->64 2x2 convs
     # at half resolution; weights from s2d.s2d_stem_variables
     s2d_stem: bool = False
-    # ---- not ported yet: training knobs -------------------------------------
-    # (`check_ported` refuses `remat`, `check_trainable` the others;
-    # `grad_clip_norm` and `skip_nonfinite_updates` are read by the train
-    # step)
+    # ---- training knobs ----------------------------------------------------
+    # flips and photometric augmentation inside the train step, on the
+    # device (data/device_augment.py), instead of in the host loader
     device_side_augs: bool = False
     loader_workers: int = 0
     max_keep_ckpt: int = 0
+    # recompute each ConvBN's conv/BN/activation in the backward instead of
+    # keeping its activations (torch.utils.checkpoint)
     remat: bool = False
+    # equal microbatches per step, gradients averaged (train_step.py)
     grad_accum: int = 1
     skip_nonfinite_updates: bool = True
     grad_clip_norm: float = 0.0
+    # train steps per Solver block (train_step.make_multi_step)
     steps_per_dispatch: int = 1
+    # the decoded split resident on the device; the host ships only the
+    # placement decisions (data/device_corpus.py; needs device_side_augs)
     device_corpus: bool = False
     # decoder fusion nodes (layers 77/80/83) run their 1x1 conv before the
-    # nearest upsample, the kernel split by rows (eval only: refused by
-    # `check_trainable`; ignored by the deploy and quant graphs, as in JAX)
+    # nearest upsample, the kernel split by rows (ignored by the deploy and
+    # quant graphs, as in JAX)
     decoder_commute: bool = False
     # NMS through the hand-written CUDA kernel (ops/custom_ops.py) when the
     # tensors are on CUDA; otherwise, and by default, `nms_engine` runs
@@ -175,30 +180,22 @@ class DISYoloConfig:
     def data_path(self, phase: str) -> str:
         return os.path.join(self.dataset, phase)
 
-    def check_ported(self) -> None:
-        """Raise if a field selects a graph the port does not have yet, so
-        such a config never runs as the plain default model."""
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in UNPORTED_GRAPH_FIELDS:
-            value = getattr(self, name)
-            if value != defaults[name]:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported to dis_yolo_tpu_torch "
-                    f"yet (only the default {defaults[name]!r} is)")
-
     def check_trainable(self) -> None:
         """Raise if a training knob asks for what the port's train step
-        does not have yet (gradient accumulation, on-device augmentation
-        or corpus, multi-step dispatch, sync-BN), the graph is one of the
-        inference-only serving graphs or the commuted decoder, or
-        ``check_ported`` refuses the graph (``remat``)."""
-        self.check_ported()
+        does not have yet (sync-BN) or the graph is one of the
+        inference-only serving graphs; ``device_corpus`` without
+        ``device_side_augs`` is a ValueError (the host no longer holds
+        the pixels to flip)."""
         for name, ported in UNPORTED_TRAIN_FIELDS.items():
             value = getattr(self, name)
             if value != ported:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to dis_yolo_tpu_torch's "
                     f"train step yet (only {ported!r} is)")
+        if self.device_corpus and not self.device_side_augs:
+            raise ValueError("device_corpus requires device_side_augs=True: "
+                             "the host no longer holds pixels, so flips and "
+                             "photometric run in the train step")
 
     def replace(self, **kw) -> "DISYoloConfig":
         return dataclasses.replace(self, **kw)
@@ -211,16 +208,10 @@ class DISYoloConfig:
         return "\n".join(lines) + "\n"
 
 
-# fields of the graph whose non-default values the port lacks
-UNPORTED_GRAPH_FIELDS = ("remat",)
-
 # training knobs and graphs, and the one value of each that the train step
-# supports (`remat` is refused with the graph variants); the serving
-# graphs are inference only and `decoder_commute` is ported for eval only
-UNPORTED_TRAIN_FIELDS = {"grad_accum": 1, "device_side_augs": False,
-                         "device_corpus": False, "steps_per_dispatch": 1,
-                         "bn_axis": None, "deploy": False, "quant": False,
-                         "quant_calibrate": False, "s2d_stem": False,
-                         "decoder_commute": False}
+# supports: sync-BN belongs to the data-parallel layer, not ported yet, and
+# the serving graphs are inference only
+UNPORTED_TRAIN_FIELDS = {"bn_axis": None, "deploy": False, "quant": False,
+                         "quant_calibrate": False, "s2d_stem": False}
 
 DEFAULT_CONFIG = DISYoloConfig()

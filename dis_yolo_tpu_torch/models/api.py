@@ -121,7 +121,6 @@ def predict_from_outputs(cfg: DISYoloConfig, raws: Sequence, windows,
     ``cfg.use_pallas_assembly`` picks the assembly: K1 (exact 0 outside
     each box), or the gather formulation times validity (0.5 outside the
     box on valid rows, as the JAX package's jnp route)."""
-    cfg.check_ported()
     dev = resolve_device(device)
     raws = [_to_device(r, dev) for r in raws]
     windows = _to_device(windows, dev).float()

@@ -9,7 +9,8 @@ Flax modules, so the weight bridge (``models/weights.py``) maps names 1:1.
 
 The public outputs keep the JAX layouts and dtype: raw heads
 ``[B, H/s, W/s, 3, 5+C]`` and score maps ``[B, S, S, k^2]``, NHWC, all
-float32.  Inside, the convs run NCHW on a channels-last view of the NHWC
+float32 (float64 in a float64 model, whose BatchNorm also stays in
+float64).  Inside, the convs run NCHW on a channels-last view of the NHWC
 input.  ``model.train()`` is Flax's ``train=True``: BatchNorm uses batch
 statistics, except in the layers of ``cfg.locked_layers``.
 
@@ -19,7 +20,9 @@ The serving graphs choose each conv_bn layer as the JAX package does:
 decoder's fusion nodes 77/80/83 as ``CommutedConcatConvBN`` with
 ``cfg.decoder_commute`` outside the deploy and quant graphs).
 ``cfg.s2d_stem`` replaces conv1/conv2 by the space-to-depth stem
-(``models/s2d.py``).  ``remat`` is refused by ``cfg.check_ported()``.
+(``models/s2d.py``).  ``cfg.remat`` recomputes every ``ConvBN`` in the
+backward (as JAX's ``nn.remat(ConvBN)``: not the commuted fusion nodes);
+the parameter names are the same in every variant.
 
 ``stop_stage`` is a profiling probe, as in the JAX package: the forward
 returns early at a named cut (``STOP_STAGES``: after the stem, the
@@ -112,7 +115,6 @@ class DISYolo(nn.Module):
 
     def __init__(self, cfg: DISYoloConfig, stop_stage: Optional[str] = None):
         super().__init__()
-        cfg.check_ported()
         if stop_stage is not None and stop_stage not in STOP_STAGES:
             raise ValueError(f"stop_stage must be one of {STOP_STAGES} or "
                              f"None, got {stop_stage!r}")
@@ -137,7 +139,8 @@ class DISYolo(nn.Module):
                                              lock=idx in cfg.locked_layers)
             else:
                 layer = ConvBN(cin, feat, kernel, stride, cfg.alpha, dtype,
-                               lock=idx in cfg.locked_layers)
+                               lock=idx in cfg.locked_layers,
+                               remat=cfg.remat)
             self.add_module(f"convolutional{idx}", layer)
         self.compute_dtype = dtype
 
@@ -158,7 +161,8 @@ class DISYolo(nn.Module):
     @staticmethod
     def _head(y: torch.Tensor, a: int) -> torch.Tensor:
         b, _, h, w = y.shape
-        return y.permute(0, 2, 3, 1).reshape(b, h, w, a, -1).float()
+        y = y.permute(0, 2, 3, 1).reshape(b, h, w, a, -1)
+        return y.to(torch.promote_types(y.dtype, torch.float32))
 
     def forward(self, images: torch.Tensor):
         cfg = self.cfg
@@ -242,6 +246,7 @@ class DISYolo(nn.Module):
             else:
                 m = self._up_concat_cbn(83, skip1, c(82)(m))
                 sm = c(85)(c(84)(m))
-        scoremaps = sm.permute(0, 2, 3, 1).float().contiguous()
+        scoremaps = sm.permute(0, 2, 3, 1).to(
+            torch.promote_types(sm.dtype, torch.float32)).contiguous()
         return (raw_s8.contiguous(), raw_s16.contiguous(),
                 raw_s32.contiguous(), scoremaps)

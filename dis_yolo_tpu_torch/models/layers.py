@@ -16,7 +16,9 @@ JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
     own train mode would store the unbiased one);
   * a locked layer (``lock=True``, the reference's transfer-learning
     freeze) normalizes with its running statistics and leaves them
-    untouched even in train mode.
+    untouched even in train mode;
+  * ``remat=True`` recomputes conv/BN/activation in the backward
+    (``torch.utils.checkpoint``), the running statistics moved once.
 
 The serving graphs add ``DeployConv`` (conv + bias + leaky, BN folded
 away) and ``CommutedConcatConvBN`` (the decoder's concat 1x1 run before
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_DECAY = 0.997                 # Flax's momentum: new = decay*old + ...
 BN_MOMENTUM = 1.0 - BN_DECAY     # nn.BatchNorm2d's convention
@@ -63,18 +66,24 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int):
     return F.conv2d(x, weight, bias, stride, 0)
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d):
     """Flax ``BatchNorm(use_running_average=False)`` on an NCHW float32
-    tensor: normalize with the biased batch statistics and move ``bn``'s
-    running statistics towards them (in place, outside autograd)."""
+    tensor: normalize with the biased batch statistics.  Returns (out,
+    mean, var); ``update_running_stats`` moves ``bn``'s statistics."""
     mean = x.mean((0, 2, 3))
     var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    out = (x - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias[:, None, None]
+    return out, mean, var
+
+
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """Flax's running-statistics update (in place, outside autograd)."""
     with torch.no_grad():
         bn.running_mean.mul_(BN_DECAY).add_((1.0 - BN_DECAY) * mean)
         bn.running_var.mul_(BN_DECAY).add_((1.0 - BN_DECAY) * var)
-    mul = torch.rsqrt(var + BN_EPS) * bn.weight
-    return (x - mean[:, None, None]) * mul[:, None, None] \
-        + bn.bias[:, None, None]
 
 
 class ConvBN(nn.Module):
@@ -84,11 +93,19 @@ class ConvBN(nn.Module):
     (the weight bridge maps them); in train mode its statistics follow
     Flax (``batch_norm_train``), and a locked layer always normalizes
     with the running statistics.
+
+    ``remat`` (``nn.remat(ConvBN)`` in JAX): in a train-mode forward that
+    records gradients, conv/BN/activation run under
+    ``torch.utils.checkpoint`` and are recomputed in the backward, so only
+    the block's input is kept.  The recomputed function returns the batch
+    moments and moves no statistic: the running statistics move once,
+    outside it.
     """
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, alpha: float = 0.1,
-                 dtype: torch.dtype = torch.bfloat16, lock: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, lock: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, stride, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -96,22 +113,37 @@ class ConvBN(nn.Module):
         self.alpha = alpha
         self.dtype = dtype
         self.lock = lock
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            y, moments = checkpoint(self._conv_bn_act, x, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            y, moments = self._conv_bn_act(x)
+        if moments is not None:
+            update_running_stats(self.bn, *moments)
+        return y
+
+    def _conv_bn_act(self, x: torch.Tensor):
         x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
                       self.stride)
         return self._bn_act(x)
 
-    def _bn_act(self, x: torch.Tensor) -> torch.Tensor:
-        """BatchNorm in float32 on the conv output, back to the compute
-        dtype, leaky ReLU."""
+    def _bn_act(self, x: torch.Tensor):
+        """BatchNorm in float32 (float64 in a float64 model) on the conv
+        output, back to the compute dtype, leaky ReLU.  Returns (out, the
+        batch moments, or None where the running statistics normalize)."""
         bn = self.bn
+        moments = None
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and not self.lock:
-            x = batch_norm_train(x.float(), bn)
+            x, mean, var = batch_norm_train(x, bn)
+            moments = (mean, var)
         else:
-            x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+            x = F.batch_norm(x, bn.running_mean, bn.running_var,
                              bn.weight, bn.bias, False, 0.0, BN_EPS)
-        return leaky_relu(x.to(self.dtype), self.alpha)
+        return leaky_relu(x.to(self.dtype), self.alpha), moments
 
 
 class CommutedConcatConvBN(ConvBN):
@@ -132,7 +164,10 @@ class CommutedConcatConvBN(ConvBN):
         cs = skip.shape[1]
         out_s = conv_same(skip.to(self.dtype), k[:, :cs], None, 1)
         out_u = conv_same(small.to(self.dtype), k[:, cs:], None, 1)
-        return self._bn_act(out_s + upsample2x_nearest(out_u))
+        y, moments = self._bn_act(out_s + upsample2x_nearest(out_u))
+        if moments is not None:
+            update_running_stats(self.bn, *moments)
+        return y
 
 
 class DeployConv(nn.Module):

@@ -77,7 +77,8 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
 
 
 def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of ``state_dict_from_flax``: numpy leaves, HWIO kernels."""
+    """Inverse of ``state_dict_from_flax``: numpy leaves, HWIO kernels,
+    float32 (float64 from a float64 model)."""
     inv_params = {v: k for k, v in _PARAM_NAMES.items()}
     inv_stats = {v: k for k, v in _STAT_NAMES.items()}
     params: Dict[str, Any] = {}
@@ -90,7 +91,9 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             params.setdefault(layer, {})["w_q"] = np.ascontiguousarray(
                 value.detach().cpu().numpy().transpose(2, 3, 1, 0))
             continue
-        value = value.detach().cpu().float().numpy()
+        value = value.detach().cpu()
+        value = value.to(torch.promote_types(value.dtype,
+                                             torch.float32)).numpy()
         if rest in _QUANT_LEAVES:
             params.setdefault(layer, {})[rest] = value
         elif rest == "conv.weight":

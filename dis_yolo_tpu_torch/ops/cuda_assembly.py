@@ -148,14 +148,18 @@ class _AssembleTrainable(torch.autograd.Function):
         boxes_px = boxes_px.float().contiguous()
         ctx.save_for_backward(boxes_px)
         ctx.k = k
+        # float32 (the kernels' type; a float64 model's CPU run stays in
+        # float64)
+        dtype = torch.promote_types(scoremaps.dtype, torch.float32)
         return custom_ops.assemble_masks_batch_cuda(
-            scoremaps.float().contiguous(), boxes_px, k, apply_sigmoid=False,
-            pixel_boxes=True)
+            scoremaps.to(dtype).contiguous(), boxes_px, k,
+            apply_sigmoid=False, pixel_boxes=True)
 
     @staticmethod
     def backward(ctx, g):
         (boxes_px,) = ctx.saved_tensors
-        g_sm = assemble_bwd_cuda(boxes_px, g.float().contiguous(), ctx.k)
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        g_sm = assemble_bwd_cuda(boxes_px, g.contiguous(), ctx.k)
         # rounding killed the boxes' gradient in the gather formulation
         return g_sm, torch.zeros_like(boxes_px), None
 

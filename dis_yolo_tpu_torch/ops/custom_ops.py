@@ -67,7 +67,9 @@ def assemble_masks_batch_plain(scoremaps: torch.Tensor,
     s = scoremaps.shape[1]
     boxes_px = (boxes_norm.float() if pixel_boxes
                 else torch.round(boxes_norm.float() * s))
-    logits, inside = _assemble_px(scoremaps.float(), boxes_px, k)
+    logits, inside = _assemble_px(
+        scoremaps.to(torch.promote_types(scoremaps.dtype, torch.float32)),
+        boxes_px, k)
     if not apply_sigmoid:
         return logits
     return torch.where(inside, 1.0 / (1.0 + torch.exp(-logits)), 0.0)

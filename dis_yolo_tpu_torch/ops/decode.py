@@ -36,7 +36,7 @@ def cell_offsets(grid_h: int, grid_w: int, device=None) -> torch.Tensor:
 def decode_scale(raw: torch.Tensor, scale_idx: int, cfg: DISYoloConfig,
                  net_hw: Sequence[int]) -> ScalePrediction:
     """Decode one head output [B, H, W, A, 5+C] -> ScalePrediction."""
-    raw = raw.float()
+    raw = raw.to(torch.promote_types(raw.dtype, torch.float32))
     grid_h, grid_w = raw.shape[1], raw.shape[2]
     net_h, net_w = net_hw
     a = cfg.anchors_per_scale

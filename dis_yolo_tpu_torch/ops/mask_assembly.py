@@ -66,12 +66,13 @@ def assemble_bwd_plain(boxes_px: torch.Tensor, g: torch.Tensor,
     row_bin, row_in = bin_index_1d(s, gy, k)                     # [B,R,S]
     col_bin, col_in = bin_index_1d(s, gx, k)
     channels = torch.arange(kk, dtype=torch.int32, device=g.device)
-    out = torch.zeros((bsz, s, s, kk), dtype=torch.float32, device=g.device)
+    dtype = torch.promote_types(g.dtype, torch.float32)
+    out = torch.zeros((bsz, s, s, kk), dtype=dtype, device=g.device)
     for d in range(r):
         kidx = row_bin[:, d, :, None] * k + col_bin[:, d, None, :]  # [B,S,S]
         inside = row_in[:, d, :, None] & col_in[:, d, None, :]
         hit = (kidx[..., None] == channels) & inside[..., None]
-        out = out + torch.where(hit, g[:, d, :, :, None].float(), 0.0)
+        out = out + torch.where(hit, g[:, d, :, :, None].to(dtype), 0.0)
     return out
 
 

@@ -5,9 +5,10 @@ Loop structure, as the JAX package's:
   * the host loader (``data.dataset``, a prefetch thread or a pool of
     worker processes) feeds ``utils.runtime.device_prefetch``, which keeps
     two batches in flight to the card;
-  * ``train_step.make_train_step`` takes each step (the piecewise
-    learning rate inside the optimizer), the mask loss's ROI picks drawn
-    from a ``torch.Generator`` seeded ``seed + 1``;
+  * ``train_step.make_multi_step`` takes each block of
+    ``cfg.steps_per_dispatch`` steps (1 by default; the piecewise learning
+    rate inside the optimizer), the mask loss's ROI picks drawn from a
+    ``torch.Generator`` seeded ``seed + 1``;
   * a metric row every ``summary_iter`` steps, with ``skipped_nonfinite``
     (the optimizer's ``total_notfinite``);
   * every ``save_iter`` steps: the validation sweep over the val split
@@ -20,11 +21,15 @@ whole train state; ``weights_from`` is the stage bridge (weights only,
 fresh optimizer and step); ``tf1_weights`` the stage-1 selective restore
 from converted TF1 or darknet weights.
 
-Not ported (``cfg.check_trainable`` refuses them): the K-steps-per-
-dispatch blocks and the device corpus (``steps_per_dispatch``,
-``device_corpus``, ``device_side_augs``), gradient accumulation and
-sync-BN (``grad_accum``, ``bn_axis``); a ``mesh`` raises.  Everything
-runs on ``cuda`` unless ``device="cpu"`` is passed.
+With ``cfg.device_side_augs`` the loaders skip the host flips and
+photometric (``host_augs=False``) and the step draws them from a second
+generator on the device, seeded ``seed + 2``.  With
+``cfg.device_corpus`` the split is uploaded once
+(``data/device_corpus.py``) and each block assembles its batches on the
+device (``train_step.make_corpus_multi_step``).  Sync-BN (``bn_axis``) is
+refused by ``cfg.check_trainable``, and a ``mesh`` raises: both belong
+to the data-parallel layer, not ported yet.  Everything runs on
+``cuda`` unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.data.dataset import DefectTrainData, ParallelTrainData
+from dis_yolo_tpu_torch.data.device_corpus import CorpusTrainData, upload_corpus
 from dis_yolo_tpu_torch.data.val_data import DefectValData
 from dis_yolo_tpu_torch.eval.map_eval import Evaluator
 from dis_yolo_tpu_torch.models import api
@@ -64,14 +70,26 @@ class Solver:
         cfg.check_trainable()
         self.cfg = cfg
         self.device = api.resolve_device(device)
+        # with device-side augs the host loader must not flip or apply the
+        # photometric augs too (they would apply twice)
+        host_augs = not cfg.device_side_augs
+        self.device_corpus = None
         if data is not None:
             self.data = data
+        elif cfg.device_corpus:
+            # the decoded split goes to the device once; the loader ships
+            # the placement decisions only
+            self.data = CorpusTrainData(cfg, "train", seed=seed)
         elif cfg.loader_workers:
             workers = None if cfg.loader_workers < 0 else cfg.loader_workers
             self.data = ParallelTrainData(cfg, "train", seed=seed,
+                                          host_augs=host_augs,
                                           workers=workers)
         else:
-            self.data = DefectTrainData(cfg, "train", seed=seed)
+            self.data = DefectTrainData(cfg, "train", seed=seed,
+                                        host_augs=host_augs)
+        if cfg.device_corpus:
+            self.device_corpus = upload_corpus(self.data.corpus, self.device)
         self.evaluator = evaluator
         self.val_data = val_data
         self.ckpt_dir = os.path.join(cfg.output_dir, "checkpoint")
@@ -102,8 +120,16 @@ class Solver:
                 print(f"Auto-resuming from {restore}")
         if restore:
             ckpt.restore_checkpoint(restore, self.state)
-        self.step_fn = ts.make_train_step(self.model, device=self.device)
+        if self.device_corpus is not None:
+            corpus_fn = ts.make_corpus_multi_step(self.model,
+                                                  device=self.device)
+            self.step_fn = lambda state, block, rng, aug_rng: corpus_fn(
+                state, self.device_corpus, block, rng, aug_rng)
+        else:
+            self.step_fn = ts.make_multi_step(self.model, device=self.device)
         self.rng = torch.Generator().manual_seed(seed + 1)
+        self.aug_rng = (torch.Generator(device=self.device).manual_seed(
+            seed + 2) if cfg.device_side_augs else None)
         self._paste_cache: Dict = {}
         self.load_timer, self.train_timer = Timer(), Timer()
         best = ckpt.read_best(self.ckpt_dir)
@@ -176,37 +202,69 @@ class Solver:
     # ------------------------------------------------------------------
     def train(self, max_iter: Optional[int] = None):
         """Train from the state's step + 1 to ``max_iter`` (default
-        ``cfg.max_iter``); returns the train state.  ``load_timer`` times
-        the wait for each batch on the card, ``train_timer`` each step up
-        to its metrics (the step synchronizes with the host there)."""
+        ``cfg.max_iter``) in blocks of K steps; returns the train state.
+
+        K = ``cfg.steps_per_dispatch`` (1 by default), snapped down to a
+        divisor of ``save_iter`` so that no block straddles a validation
+        and checkpoint; the tail to ``max_iter`` may be a shorter block.
+        Each block is ``self.step_fn`` (``train_step.make_multi_step``,
+        or ``make_corpus_multi_step`` over the device corpus), equal to K
+        single steps seed for seed.  The metrics stay stacked on the
+        device until the block's end, where one fetch serves every
+        ``summary_iter`` row inside it; ``skipped_nonfinite`` is the count
+        at the block's tail.  ``load_timer`` times the wait for each block
+        on the card, ``train_timer`` each block up to its metrics (the
+        step synchronizes with the host there).
+        """
         cfg = self.cfg
         max_iter = max_iter or cfg.max_iter
         start = self.state.step + 1
         if start > max_iter:
             return self.state
+        k = max(1, cfg.steps_per_dispatch)
+        while cfg.save_iter % k:
+            k -= 1
+        if k != cfg.steps_per_dispatch and ckpt.is_primary():
+            print(f"steps_per_dispatch {cfg.steps_per_dispatch} -> {k} "
+                  f"(snapped to a divisor of save_iter {cfg.save_iter})")
+
+        def blocks():
+            todo = max_iter - start + 1
+            while todo > 0:
+                m = min(k, todo)
+                bats = [self.data.next_prefetched() for _ in range(m)]
+                todo -= m
+                yield {key: np.stack([b[key] for b in bats]) for key in bats[0]}
+
         self.data.start_prefetch()
         try:
-            batches = device_prefetch(
-                (self.data.next_prefetched()
-                 for _ in range(start, max_iter + 1)),
-                size=2, device=self.device)
+            batches = device_prefetch(blocks(), size=2, device=self.device)
             epoch_loss, epoch_count = 0.0, 0
-            for step in range(start, max_iter + 1):
+            step = start - 1
+            while step < max_iter:
                 self.load_timer.tic()
-                batch = next(batches)
+                block = next(batches)
                 self.load_timer.toc()
-
                 self.train_timer.tic()
-                self.state, metrics = self.step_fn(self.state, batch, self.rng)
+                self.state, metrics = self.step_fn(self.state, block,
+                                                   self.rng, self.aug_rng)
                 self.train_timer.toc()
+                m = int(metrics["total_loss"].shape[0])
+                first, step = step + 1, step + m
                 # the loss stays on the device between syncs
-                epoch_loss = epoch_loss + metrics["total_loss"]
-                epoch_count += 1
+                epoch_loss = epoch_loss + metrics["total_loss"].sum()
+                epoch_count += m
 
-                if step % cfg.summary_iter == 0 and ckpt.is_primary():
-                    row = {k: float(v) for k, v in metrics.items()}
-                    row["skipped_nonfinite"] = self.state.opt.total_notfinite
-                    self.logger.log(step, row)
+                log_steps = [t for t in range(first, step + 1)
+                             if t % cfg.summary_iter == 0]
+                if log_steps and ckpt.is_primary():
+                    rows = {key: v.cpu().numpy() for key, v in metrics.items()}
+                    for t in log_steps:
+                        row = {key: float(v[t - first])
+                               for key, v in rows.items()}
+                        row["skipped_nonfinite"] = \
+                            self.state.opt.total_notfinite
+                        self.logger.log(t, row)
 
                 if step % cfg.save_iter == 0:
                     self._at_save(step, start, max_iter,

@@ -30,23 +30,43 @@ too.  So with ``skip_nonfinite_updates`` on (the default) and layers
 locked, the step also takes the locked parameters' gradients, for the
 check only (their update is zero either way); with it off, locked
 parameters get no gradient at all (``requires_grad`` off).  The model,
-its BN statistics and the moments are updated in place.  Not ported (refused by
-``cfg.check_trainable()``): ``grad_accum > 1``, ``remat``, on-device
-augmentation and corpus, multi-step dispatch and sync-BN.
+its BN statistics and the moments are updated in place.
 
-Entry points: ``init_train_state`` and ``make_train_step`` run on CUDA
-unless ``device="cpu"`` is passed, and raise when there is no card.
+The training knobs, as in the JAX package:
+  * ``cfg.grad_accum = n``: the batch splits into n equal microbatches
+    (``grads_and_aux``); the BN running statistics move once per
+    microbatch, in order; gradients and metrics are averaged, and the
+    finite check and the statistics guard see the averages and the
+    statistics after the last microbatch;
+  * ``cfg.device_side_augs``: flips and photometric on the device after
+    ``prepare_batch`` (``data/device_augment.py``), their draws from a
+    second generator on the device;
+  * ``make_multi_step``: K steps over a stacked block, the generators
+    consumed in the order of K single steps; ``make_corpus_multi_step``:
+    the same over a device-resident corpus (``data/device_corpus.py``),
+    each step's batch assembled on the device.
+Sync-BN (``cfg.bn_axis``) is refused by ``cfg.check_trainable()``.
+
+The step synchronizes with the host in three places, and a block in
+each of its steps: the finite check, the statistics guard and the
+fixpoint NMS's predicates.
+
+Entry points: ``init_train_state``, ``make_train_step``,
+``make_multi_step`` and ``make_corpus_multi_step`` run on CUDA unless
+``device="cpu"`` is passed, and raise when there is no card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
+from dis_yolo_tpu_torch.data.device_augment import augment_batch, draw_augment
+from dis_yolo_tpu_torch.data.device_corpus import make_assemble_fn
 from dis_yolo_tpu_torch.losses.mask_loss import (draw_uniforms,
                                                  mask_loss_per_image,
                                                  resize_gt_masks)
@@ -156,6 +176,44 @@ def total_loss(model: DISYolo, batch: Dict[str, torch.Tensor],
     return total, metrics
 
 
+def grads_and_aux(model: DISYolo, batch: Dict[str, torch.Tensor],
+                  u_prop: torch.Tensor, u_gt: torch.Tensor,
+                  params: Sequence[torch.Tensor]):
+    """(gradients of ``params``, detached metrics) of one batch, in
+    ``cfg.grad_accum`` equal microbatches when it is > 1.
+
+    Each microbatch is a train-mode forward and backward: the BN running
+    statistics move once per microbatch, in order.  Gradients and
+    metrics are summed and scaled by 1/n (the mean of equal means is the
+    batch mean; the L2 term is the same in every microbatch).  The ROI
+    uniforms are drawn for the whole batch and sliced, so an image's
+    picks do not depend on n.  Raises ValueError on a batch n does not
+    divide.
+    """
+    n = max(1, model.cfg.grad_accum)
+    b = batch["images"].shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} not divisible by grad_accum {n}")
+    micro = b // n
+    gsum, msum = None, None
+    for i in range(n):
+        part = slice(i * micro, (i + 1) * micro)
+        total, metrics = total_loss(model, {k: v[part]
+                                            for k, v in batch.items()},
+                                    u_prop[part], u_gt[part])
+        grads = torch.autograd.grad(total, params) if params else ()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if gsum is None:
+            gsum, msum = list(grads), metrics
+        else:
+            gsum = [a + g for a, g in zip(gsum, grads)]
+            msum = {k: msum[k] + metrics[k] for k in msum}
+    if n == 1:
+        return gsum, msum
+    inv = 1.0 / n
+    return [g * inv for g in gsum], {k: v * inv for k, v in msum.items()}
+
+
 # --------------------------------------------------------------- optimizer
 
 @dataclasses.dataclass
@@ -260,12 +318,16 @@ def init_train_state(model: DISYolo, device=None) -> TrainState:
 
 
 def make_train_step(model: DISYolo, device=None):
-    """``step(state, batch, generator) -> (state, metrics)``.
+    """``step(state, batch, generator, aug_generator=None) -> (state,
+    metrics)``.
 
     ``batch`` holds numpy arrays or tensors on the device (the reference
     7-tuple, or uint8 images and ``masks_packed``; ``prepare_batch``);
-    ``generator`` (a ``torch.Generator``) draws the mask loss's ROI picks.
-    The locked layers' parameters keep ``requires_grad`` only when their
+    ``generator`` (a ``torch.Generator``) draws the mask loss's ROI
+    picks; ``aug_generator``, a generator on the model's device, draws
+    the device-side augmentation (``cfg.device_side_augs``; flips with
+    ``cfg.flipped``, photometric with ``cfg.blur_noise_light``).  The
+    locked layers' parameters keep ``requires_grad`` only when their
     gradients enter the finite check (``cfg.skip_nonfinite_updates``).
     ``metrics`` are detached scalar tensors on the device.
     """
@@ -279,30 +341,100 @@ def make_train_step(model: DISYolo, device=None):
     wanted = list(params) if cfg.skip_nonfinite_updates else trainable
     for name, p in params.items():
         p.requires_grad_(name in wanted)
+    wanted_params = [params[n] for n in wanted]
     bns = [m for m in model.modules() if isinstance(m, ConvBN)]
     all_stats = [t for m in bns for t in (m.bn.running_mean, m.bn.running_var)]
     unlocked_stats = [t for m in bns if not m.lock
                       for t in (m.bn.running_mean, m.bn.running_var)]
 
-    def step(state: TrainState, batch, generator: torch.Generator):
+    def step(state: TrainState, batch, generator: torch.Generator,
+             aug_generator: Optional[torch.Generator] = None):
         if state.model is not model:
             raise ValueError("state was built for another model")
         batch = prepare_batch({k: _to_device(v, dev) for k, v in batch.items()})
         bsz = batch["images"].shape[0]
+        if cfg.device_side_augs:
+            if aug_generator is None or aug_generator.device.type != dev.type:
+                raise ValueError("device_side_augs needs aug_generator, a "
+                                 f"torch.Generator on {dev}")
+            flips, photo = cfg.flipped, cfg.blur_noise_light
+            draws = draw_augment(aug_generator, bsz, cfg.image_size, flips,
+                                 photo)
+            batch = augment_batch(batch, draws, cfg.image_size, flips, photo)
         n_gt = batch["true_boxes"].shape[-2]
         u_prop, u_gt = draw_uniforms(generator, bsz, cfg.max_detection, n_gt,
                                      dev)
         old = [t.clone() for t in unlocked_stats] \
             if cfg.skip_nonfinite_updates else None
-        total, metrics = total_loss(model, batch, u_prop, u_gt)
-        grads = torch.autograd.grad(total, [params[n] for n in wanted]) \
-            if wanted else ()
+        grads, metrics = grads_and_aux(model, batch, u_prop, u_gt,
+                                       wanted_params)
         with torch.no_grad():
+            # the statistics guard: a step that made any statistic
+            # non-finite puts the whole tree back
             if old is not None and not bool(torch.isfinite(torch.cat(
                     [t.reshape(-1) for t in all_stats])).all()):
                 torch._foreach_copy_(unlocked_stats, old)
             adam_apply(state.opt, params, dict(zip(wanted, grads)), cfg)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step
+
+
+def _stacked_steps(step, state, batches, generator, aug_generator):
+    """Run ``step`` on each batch in order; metrics stacked [K] on the
+    device."""
+    rows = []
+    for batch in batches:
+        state, metrics = step(state, batch, generator, aug_generator)
+        rows.append(metrics)
+    return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _unstack(block: Dict, dev: torch.device):
+    """The K per-step dicts of a stacked block [K, ...]."""
+    block = {k: _to_device(v, dev) for k, v in block.items()}
+    k = next(iter(block.values())).shape[0]
+    return [{key: v[i] for key, v in block.items()} for i in range(k)]
+
+
+def make_multi_step(model: DISYolo, device=None):
+    """``multi(state, block, generator, aug_generator=None) -> (state,
+    metrics)``: K train steps over a stacked block (each field [K, B,
+    ...], K its leading dimension), the counterpart of JAX's
+    ``make_jitted_multi_step``.  The steps are ``make_train_step``'s and
+    consume both generators in the order K single steps do, so a block
+    equals K steps seed for seed; each metric comes back stacked [K] on
+    the device."""
+    dev = _check_model(model, device)
+    step = make_train_step(model, device=dev)
+
+    def multi(state: TrainState, block, generator: torch.Generator,
+              aug_generator: Optional[torch.Generator] = None):
+        return _stacked_steps(step, state, _unstack(block, dev), generator,
+                              aug_generator)
+
+    return multi
+
+
+def make_corpus_multi_step(model: DISYolo, device=None):
+    """``multi(state, corpus, params, generator, aug_generator) ->
+    (state, metrics)``: K train steps over a device-resident corpus
+    (``device_corpus.upload_corpus``), the counterpart of JAX's
+    ``make_jitted_corpus_multi_step``.  ``params`` is a stacked block of
+    ``CorpusTrainData`` batches [K, B, ...]; each step's batch is
+    assembled on the device (``device_corpus.make_assemble_fn``) and
+    augmented there (needs ``cfg.device_side_augs``)."""
+    dev = _check_model(model, device)
+    if not model.cfg.device_side_augs:
+        raise ValueError("the corpus step needs cfg.device_side_augs=True")
+    step = make_train_step(model, device=dev)
+    assemble = make_assemble_fn(model.cfg)
+
+    def multi(state: TrainState, corpus: Dict[str, torch.Tensor], params,
+              generator: torch.Generator,
+              aug_generator: Optional[torch.Generator] = None):
+        batches = (assemble(corpus, p) for p in _unstack(params, dev))
+        return _stacked_steps(step, state, batches, generator, aug_generator)
+
+    return multi

@@ -108,10 +108,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         api.predict_from_outputs(cfg, raws, windows)
     dets, masks = api.predict(model, images, windows, device="cpu")
     assert dets.device.type == masks.device.type == "cpu"
+    from dis_yolo_tpu_torch.data import device_corpus
+    aug_model = api.create_model(cfg.replace(device_side_augs=True),
+                                 device="cpu")
+    host = device_corpus.HostCorpus(*(np.zeros(s, d) for s, d in (
+        ((1, 8, 8, 3), np.uint8), ((1, 20, 8), np.uint8), ((1, 2), np.int32),
+        ((1, 20, 4), np.float32), ((1, 20), np.int32), ((1,), np.int32))))
     for call in (lambda: train_step.init_train_state(model),
-                 lambda: train_step.make_train_step(model)):
+                 lambda: train_step.make_train_step(model),
+                 lambda: train_step.make_multi_step(model),
+                 lambda: train_step.make_corpus_multi_step(aug_model),
+                 lambda: device_corpus.upload_corpus(host)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert device_corpus.upload_corpus(host, "cpu")["sizes"].device.type \
+        == "cpu"
     state = train_step.init_train_state(model, device="cpu")
     assert callable(train_step.make_train_step(model, device="cpu"))
     assert state.step == 0 and state.opt.count == 0
@@ -126,8 +137,7 @@ def test_entry_points_reject_tensors_on_another_device():
 
 
 # the serving graphs: ported for inference, refused by the train step
-SERVING_GRAPH_FIELDS = ("deploy", "quant", "quant_calibrate", "s2d_stem",
-                        "decoder_commute")
+SERVING_GRAPH_FIELDS = ("deploy", "quant", "quant_calibrate", "s2d_stem")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -135,13 +145,13 @@ SERVING_GRAPH_FIELDS = ("deploy", "quant", "quant_calibrate", "s2d_stem",
     ("quant_calibrate", True), ("s2d_stem", True), ("remat", True),
     ("decoder_commute", True)])
 def test_unported_config_raises(field, value):
-    """A config that selects a graph the port lacks (remat) raises: it
-    never runs as the plain default model.  The five serving-graph fields
-    are ported: such a config builds, serves and passes check_ported, and
-    check_trainable and the train entry points refuse it (s2d_stem needs
-    deploy=True, else ValueError as in JAX).  use_pallas_assembly=False
-    is ported: it serves the gather assembly (0.5 outside the box on
-    valid rows) and trains as the default does."""
+    """Every graph variant is ported now.  The four serving-graph fields
+    build and serve, and check_trainable and the train entry points
+    refuse them (s2d_stem needs deploy=True, else ValueError as in JAX).
+    remat and decoder_commute build, serve the default's detections and
+    train (``tests/test_torch_train_knobs.py`` holds their numbers).
+    use_pallas_assembly=False serves the gather assembly (0.5 outside
+    the box on valid rows) and trains as the default does."""
     cfg = DISYoloConfig(image_size=64)
     bad = cfg.replace(**{field: value})
     raws = [np.zeros((1, g, g, 3, 8), np.float32) for g in cfg.grid_sizes()]
@@ -171,7 +181,6 @@ def test_unported_config_raises(field, value):
             with pytest.raises(ValueError, match="s2d_stem requires deploy"):
                 api.create_model(bad, device="cpu")
             bad = bad.replace(deploy=True)
-        bad.check_ported()
         model = api.create_model(bad, device="cpu")
         images = np.zeros((1, 64, 64, 3), np.float32)
         dets, masks = api.predict(model, images, windows, device="cpu")
@@ -181,27 +190,59 @@ def test_unported_config_raises(field, value):
             with pytest.raises(NotImplementedError, match="train step"):
                 call()
         return
-    with pytest.raises(NotImplementedError, match=field):
-        api.create_model(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
-        api.predict_from_outputs(bad, raws, windows, device="cpu")
-    dets, masks = api.predict_from_outputs(cfg, raws, windows, device="cpu")
+    # remat, decoder_commute: trainable graphs with the default's names
+    bad.check_trainable()
+    model = api.init_model(bad, 0, device="cpu")
+    plain = api.init_model(cfg, 0, device="cpu")
+    assert list(model.state_dict()) == list(plain.state_dict())
+    images = np.random.RandomState(0).rand(1, 64, 64, 3).astype(np.float32)
+    dets, masks = api.predict(model, images, windows, 0.0, device="cpu")
+    want, _ = api.predict(plain, images, windows, 0.0, device="cpu")
     assert dets.shape == (1, 30, 6) and masks.shape == (1, 30, 32, 32)
+    assert torch.equal(dets[..., 5], want[..., 5])
+    torch.testing.assert_close(dets, want, rtol=1e-4, atol=1e-5)
+    assert callable(train_step.make_train_step(model, device="cpu"))
 
 
 @pytest.mark.parametrize("field,value", [
     ("grad_accum", 2), ("remat", True), ("device_side_augs", True),
-    ("device_corpus", True), ("steps_per_dispatch", 4), ("bn_axis", "dp")])
+    ("device_corpus", True), ("steps_per_dispatch", 4), ("bn_axis", "dp"),
+    ("device_corpus_without_augs", True)])
 def test_unported_training_knob_raises(field, value):
-    """A training knob the port's train step lacks raises in
-    check_trainable and at the train entry points."""
+    """The single-card training knobs are ported: check_trainable accepts
+    them and the train entry points build (device_corpus with the
+    device-side augs it needs; without them a ValueError).  Sync-BN
+    (bn_axis) belongs to the data-parallel layer, not ported: it raises
+    in check_trainable and at the train entry points."""
     cfg = DISYoloConfig(image_size=64)
     cfg.check_trainable()
-    bad = cfg.replace(**{field: value})
+    if field == "device_corpus_without_augs":
+        bad = cfg.replace(device_corpus=True)
+        with pytest.raises(ValueError, match="device_side_augs"):
+            bad.check_trainable()
+        model = api.create_model(cfg, device="cpu")
+        model.cfg = bad
+        with pytest.raises(ValueError, match="device_side_augs"):
+            train_step.make_train_step(model, device="cpu")
+        return
+    knob = cfg.replace(**{field: value})
+    if field == "device_corpus":
+        knob = knob.replace(device_side_augs=True)
+    if field != "bn_axis":
+        knob.check_trainable()
+        model = api.create_model(knob, device="cpu")
+        state = train_step.init_train_state(model, device="cpu")
+        assert state.step == 0 and state.opt.mu
+        assert callable(train_step.make_train_step(model, device="cpu"))
+        assert callable(train_step.make_multi_step(model, device="cpu"))
+        if knob.device_side_augs:
+            assert callable(train_step.make_corpus_multi_step(model,
+                                                              device="cpu"))
+        return
     with pytest.raises(NotImplementedError, match=field):
-        bad.check_trainable()
+        knob.check_trainable()
     model = api.create_model(cfg, device="cpu")
-    model.cfg = bad
+    model.cfg = knob
     for call in (lambda: train_step.init_train_state(model, device="cpu"),
                  lambda: train_step.make_train_step(model, device="cpu")):
         with pytest.raises(NotImplementedError, match=field):
@@ -317,9 +358,11 @@ def test_solver_path_raises_without_cuda(monkeypatch, tmp_path):
     assert solver.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="mesh"):
         Solver(cfg, data=object(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        Solver(cfg.replace(steps_per_dispatch=2), data=object(),
-               device="cpu")
+    with pytest.raises(NotImplementedError, match="bn_axis"):
+        Solver(cfg.replace(bn_axis="dp"), data=object(), device="cpu")
+    blocked = Solver(cfg.replace(steps_per_dispatch=2, device_side_augs=True),
+                     data=object(), device="cpu")
+    assert blocked.aug_rng.device.type == "cpu"
 
 
 def test_reader_and_native_build_raise_not_fall_back(monkeypatch, tmp_path):

@@ -12,8 +12,14 @@ and the ``stop_stage`` probe of ``models/dis_yolo.py``, at 64 px.
     ground truth every second detection so that 0 < mAP < 1);
   * every ``stop_stage`` cut equals JAX's within the forward's float32
     tolerance;
-  * ``cli.main(["train", ..., "--device", "cpu"])`` runs 2 steps, and the
-    commands and flags not ported exit with a clear error.
+  * ``cli.main(["train", ..., "--device", "cpu"])`` runs 2 steps, and with
+    ``--device-corpus --steps-per-dispatch 2`` one block of 2; the flags
+    not ported exit with a clear error;
+  * K-step blocks (``steps_per_dispatch``, snapped to a divisor of
+    ``save_iter``) equal the default Solver's blocks of one step bit for
+    bit; the corpus
+    Solver trains; with ``device_side_augs`` the host loaders skip the
+    host augmentation.
 """
 
 import json
@@ -280,13 +286,79 @@ def test_cli_train_two_steps_and_refusals(split, out_dir):
     solver = cli.main(argv)
     assert solver.state.step == 2 and solver.device.type == "cpu"
     assert os.path.isdir(os.path.join(out, "checkpoint", "step_00000002"))
-    for extra in (["--data-parallel"], ["--steps-per-dispatch", "4"],
-                  ["--device-corpus"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(argv + extra)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(argv + ["--data-parallel"])
+    # the device corpus in blocks of 2 (no checkpoint: save_iter 4)
+    corpus_argv = [a if a != out else out + "_corpus" for a in argv]
+    corpus_argv[corpus_argv.index("--save-iter") + 1] = "4"
+    solver = cli.main(corpus_argv + ["--device-corpus",
+                                     "--steps-per-dispatch", "2"])
+    assert solver.cfg.device_corpus and solver.cfg.device_side_augs
+    assert solver.state.step == 2 and solver.train_timer.calls == 1
+    assert solver.device_corpus["images"].dtype == torch.uint8
+    shutil.rmtree(out + "_corpus", ignore_errors=True)
     # infer, export and verify-gt are ported: infer stops at an image it
     # cannot read
     with pytest.raises(SystemExit, match="cannot read image"):
         cli.main(["infer", "--images", os.path.join(out, "missing.jpg"),
                   "--out", os.path.join(out, "infer"), "--image-size", "64",
                   "--device", "cpu"])
+
+
+def test_blocks_equal_per_step_solver(split, out_dir, capsys):
+    """``steps_per_dispatch=3`` with ``save_iter=4`` snaps to K=2 (and
+    says so); 3 steps (a block of 2, a tail of 1) with device-side augs
+    equal the default Solver's 3 blocks of one step: weights, moments,
+    the step, both generators and the logged rows."""
+    kw = dict(max_iter=3, save_iter=4, summary_iter=1, locked_layers=(),
+              device_side_augs=True)
+    runs = {}
+    for k in (1, 3):
+        out = os.path.join(out_dir, f"k{k}")
+        solver = Solver(_cfg(split, out, steps_per_dispatch=k, **kw), seed=2,
+                        device="cpu")
+        solver.train()
+        with open(os.path.join(out, "checkpoint", "train_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        runs[k] = solver, rows
+    assert "steps_per_dispatch 3 -> 2 (snapped to a divisor of save_iter 4)" \
+        in capsys.readouterr().out
+    (one, rows1), (blk, rows3) = runs[1], runs[3]
+    assert blk.train_timer.calls == 2 and one.train_timer.calls == 3
+    for k, v in one.model.state_dict().items():
+        assert torch.equal(blk.model.state_dict()[k], v), k
+    for k in one.state.opt.mu:
+        assert torch.equal(blk.state.opt.mu[k], one.state.opt.mu[k]), k
+    assert blk.state.step == one.state.step == 3
+    assert blk.rng.get_state().equal(one.rng.get_state())
+    assert blk.aug_rng.get_state().equal(one.aug_rng.get_state())
+    strip = lambda rows: [{k: v for k, v in r.items() if k != "ts"}
+                          for r in rows]
+    assert strip(rows3) == strip(rows1) and len(rows1) == 3
+
+
+def test_corpus_solver_and_host_augs(split, out_dir):
+    """The corpus Solver runs 2 steps (always in blocks); with
+    ``device_side_augs`` both host loaders are built with
+    ``host_augs=False``, and the batches equal ``build_example(...,
+    host_augs=False)``'s."""
+    cfg = _cfg(split, out_dir, max_iter=2, save_iter=4, device_corpus=True,
+               device_side_augs=True)
+    solver = Solver(cfg, seed=3, device="cpu")
+    solver.train()
+    assert solver.state.step == 2 and solver.train_timer.calls == 2
+    assert solver.data.host_augs is False
+    rows = open(os.path.join(out_dir, "checkpoint",
+                             "train_metrics.jsonl")).read().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(json.loads(r)["total_loss"])
+                                  for r in rows)
+
+    wire = _cfg(split, out_dir, device_side_augs=True)
+    got = Solver(wire, seed=4, device="cpu").data
+    assert got.host_augs is False
+    want = DefectTrainData(wire, "train", seed=4, host_augs=False)
+    for _ in range(2):
+        g, w = got.get(), want.get()
+        assert all(np.array_equal(g[k], w[k]) for k in w)
+    pool = Solver(wire.replace(loader_workers=2), seed=4, device="cpu").data
+    assert pool.host_augs is False and pool.workers == 2
