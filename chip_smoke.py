@@ -152,6 +152,28 @@ Phases (any failure exits non-zero before the last line is printed):
   grids, ``prepare_batch``, ``augment_batch``); remat and plain stage-2
   steps timed under the default cuDNN and TF32 settings.
 
+  Data parallelism (after the device-data phase; ``--out`` key
+  ``parallel``, launch path ``parallel``): the ranks run in worker
+  processes (``chip_smoke.py --dp-worker SPEC``), each joining its group
+  through ``parallel.distributed.initialize``.  (a) Two ranks on this
+  card over gloo, global batch 4 (2 rows each) at 576^2: 3 float32
+  stage-2 steps (TF32 off) against 3 one-process steps on the same
+  global batches and draws (step-1 loss within rel 1e-4, parameters
+  within rtol 5e-2, atol 3e-3), the ranks' parameters, BN statistics
+  and Adam moments bit-equal, K1 and K3 launched in each rank; then 3
+  bf16 steps of the default config, finite and bit-equal across ranks;
+  each step's wall and the packed all-reduce alone at the step's size
+  (gloo on one card: through host memory).  (b) World size 1 over
+  NCCL in this process: 2 mesh steps bit-equal to the steps without a
+  mesh (deterministic algorithms).  (c) Two NCCL ranks, a card each,
+  as (a) when there are two cards; else it says it skipped.  (d) The
+  DP sweep of the Solver split's val images by the host and
+  device_score routes on (a)'s ranks: the keep sets, boxes and mAP of
+  the one-process sweep at a rank's batch (the same images in each
+  batch).  (e) ``cli train --data-parallel`` under
+  ``torch.distributed.run``, two ranks on this card: 2 steps, a
+  validation and rank 0's checkpoint.
+
   The serving export (after the Solver in phase 3, timed in phase 4):
   the deploy graph exported (``export.export_predict``) at B=1 and at a
   dynamic batch, the deploy graph with ``use_pallas_nms`` at B=1 and
@@ -193,8 +215,9 @@ The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
 Each kernel's ``launches`` is the sum over the serving path, the
 training path, the serving graphs' path, the eval path, the Solver's
-path, the device-data path (the ``--device-corpus`` command) and the
-export path (its live predicts here and the loaded
+path, the device-data path (the ``--device-corpus`` command), the
+data-parallel path (the two gloo ranks' training runs, counted in their
+processes) and the export path (its live predicts here and the loaded
 artifacts' calls in their process), and ``launches_by_path``
 holds each path's own count (each read from its run, with the counters
 set to 0 just before it).  Only K4 has a single PyTorch call computing
@@ -2321,10 +2344,436 @@ def check_assembly_edges(torch, custom_ops, asm_fn, gen, b, s, k, d):
     return err
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel phase (after the device-data phase): ranks in worker
+# processes (``chip_smoke.py --dp-worker SPEC``), each on its card
+
+DP_GLOBAL_BATCH = 4     # two rows per rank
+DP_STEPS = 3
+DP_SEED = 7
+
+
+def parallel_modules():
+    """The data-parallel layer and what it drives, as one namespace."""
+    from dis_yolo_tpu_torch.config import DISYoloConfig
+    from dis_yolo_tpu_torch.data.val_data import DefectValData
+    from dis_yolo_tpu_torch.eval.map_eval import Evaluator
+    from dis_yolo_tpu_torch.eval.sweep import run_split
+    from dis_yolo_tpu_torch.models import api
+    from dis_yolo_tpu_torch.ops import cuda_assembly, custom_ops
+    from dis_yolo_tpu_torch.parallel import distributed, sharding
+    from dis_yolo_tpu_torch.train import train_step as ts
+    from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
+    from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
+    return types.SimpleNamespace(**locals())
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_batches(np, m, size):
+    """The DP_STEPS global batches (wire format) every rank and the
+    one-process reference train on."""
+    cfg = m.DISYoloConfig(image_size=size, batch_size=DP_GLOBAL_BATCH)
+    return [wire_batch(np, m.synthetic_batch, cfg, seed=s) for s in range(DP_STEPS)]
+
+
+def dp_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def state_digest(torch, model, opt) -> str:
+    """sha256 over every tensor of the model's state and Adam's moments."""
+    import hashlib
+    h = hashlib.sha256()
+    tensors = (list(model.state_dict().values()) + list(opt.mu.values())
+               + list(opt.nu.values()))
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def param_sample(np, torch, model, n=4096):
+    """Each parameter's values at ``n`` fixed positions (all of a smaller
+    one), float64 numpy, for comparing runs in two processes."""
+    out = {}
+    for k, p in model.named_parameters():
+        flat = p.detach().double().reshape(-1)
+        if flat.numel() > n:
+            pos = np.random.RandomState(flat.numel() % 2**31).randint(
+                0, flat.numel(), n)
+            flat = flat[torch.from_numpy(pos).to(flat.device)]
+        out[k] = flat.cpu().numpy()
+    return out
+
+
+def dp_train(np, torch, m, mesh, dev, batches, size):
+    """DP_STEPS float32 stage-2 steps (TF32 off) from the seed-7 weights on
+    this rank's rows of ``batches``, then DP_STEPS bf16 steps of the
+    default config (stage 1).  The mesh may be None: the one-process
+    reference on the whole batches.  Returns (record, parameter samples
+    after the first and after the last float32 step)."""
+    k1, k3 = m.custom_ops.assemble_masks_batch_cuda, m.cuda_assembly.assemble_bwd_cuda
+    rec = {}
+    for tag, cfg in (("f32_stage2", m.DISYoloConfig(
+            image_size=size, compute_dtype="float32", locked_layers=())),
+                     ("bf16_default", m.DISYoloConfig(image_size=size))):
+        model = m.api.init_model(cfg, DP_SEED, device=dev)
+        state = m.ts.init_train_state(model, device=dev, mesh=mesh)
+        step = m.ts.make_train_step(model, device=dev, mesh=mesh)
+        gen = torch.Generator().manual_seed(11)
+        k1.launches = k3.launches = 0
+        losses, walls = [], []
+        for b in batches:
+            rows = b if mesh is None else m.sharding.shard_batch(mesh, b)
+            dp_sync(torch, dev)
+            t0 = time.perf_counter()
+            _, metrics = step(state, rows, gen)
+            losses.append(float(metrics["total_loss"]))   # synchronizes
+            walls.append(time.perf_counter() - t0)
+            if tag == "f32_stage2" and len(losses) == 1:
+                sample = {f"step1:{k}": v for k, v in
+                          param_sample(np, torch, model).items()}
+        rec[tag] = {"losses": losses, "step_wall_s": walls,
+                    "launches": {"K1": k1.launches, "K3": k3.launches},
+                    "digest": state_digest(torch, model, state.opt)}
+        if tag == "f32_stage2":
+            sample.update({f"last:{k}": v for k, v in
+                           param_sample(np, torch, model).items()})
+            n_packed = sum(p.numel() for p in model.parameters()) + len(metrics)
+        del model, state, step
+    if mesh is not None:
+        # the step's one packed all-reduce, alone, at the size it sends
+        buf = torch.ones(n_packed, device=dev)
+        m.distributed.all_reduce_mean_(buf, mesh)
+        times = []
+        for _ in range(5):
+            dp_sync(torch, dev)
+            t0 = time.perf_counter()
+            m.distributed.all_reduce_mean_(buf, mesh)
+            dp_sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec["packed_all_reduce"] = {"floats": n_packed, "bytes": 4 * n_packed,
+                                    "ms": times}
+        del buf
+    return rec, sample
+
+
+def dp_sweep(np, torch, m, mesh, dev, root, thresh, size):
+    """The seed-7 bf16 model swept over the Solver split's val images by
+    the host and device_score routes (``run_split``, deterministic
+    algorithms), on ``mesh`` at the global batch, or in one process at
+    a rank's batch (the same images in each batch).  Returns per route
+    the boxes [N,D,6] and the mAP."""
+    b = DP_GLOBAL_BATCH if mesh is not None else DP_GLOBAL_BATCH // 2
+    cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size,
+                          batch_size=b, obj_threshold=thresh)
+    model = m.api.init_model(cfg, DP_SEED, device=dev)
+    ev = m.Evaluator(cfg, "val")
+    images, names, windows = m.DefectValData(cfg, "val").get()
+    out = {}
+    with deterministic(torch):
+        for route in ("host", "device_score"):
+            det, t = m.run_split(cfg, model, images, names, windows, mesh=mesh,
+                                 device=dev, gt_sizes=ev.gt_sizes,
+                                 gt_records=ev.gt_masks, want_semantic=False,
+                                 device_score=route == "device_score")
+            res = ev.evaluate_detections(det)
+            out[route] = {"boxes": np.stack([d["boxes"] for d in det]),
+                          "mAP": float(res["mAP"]), "predict_s": t}
+    return out
+
+
+def dp_worker(spec_path: str) -> None:
+    """``chip_smoke.py --dp-worker SPEC``: one rank of a data-parallel
+    run.  Joins the group of ``spec`` (its backend, world size and
+    rank; its card is the rank modulo the card count), runs ``dp_train``
+    and, with ``spec["sweep"]``, ``dp_sweep`` on its mesh, saves the
+    parameter samples and the sweep's boxes to ``spec["out"]`` and prints
+    one JSON line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    m = parallel_modules()
+    size = spec["size"]
+    backend = m.distributed.initialize(spec["device"], backend=spec["backend"],
+                                       init_method=spec["init"],
+                                       world_size=spec["world"], rank=spec["rank"])
+    try:
+        mesh = m.sharding.make_mesh(spec["device"])
+        dev = mesh.device
+        rec, sample = dp_train(np, torch, m, mesh, dev, dp_batches(np, m, size),
+                               size)
+        arrays = {f"param:{k}": v for k, v in sample.items()}
+        if spec["sweep"]:
+            sweep = dp_sweep(np, torch, m, mesh, dev, spec["root"],
+                             spec["threshold"], size)
+            for route, r in sweep.items():
+                arrays[f"boxes:{route}"] = r.pop("boxes")
+            rec["sweep"] = sweep
+        np.savez(spec["out"], **arrays)
+        rec.update(backend=backend, rank=mesh.rank, world=mesh.size,
+                   device=str(dev), card=torch.cuda.get_device_name(dev)
+                   if dev.type == "cuda" else "cpu",
+                   jax_imported="jax" in sys.modules or "dis_yolo_tpu" in sys.modules)
+    finally:
+        m.distributed.shutdown()
+    print(json.dumps(rec), flush=True)
+
+
+def run_dp_workers(np, root, tag, backend, world, sweep, threshold, size,
+                   device="cuda", timeout=600):
+    """Start ``world`` ranks of ``dp_worker`` together and wait for them:
+    [(record, arrays)] by rank, and the wall s."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs, specs = [], []
+    t0 = time.time()
+    for rank in range(world):
+        spec = {"rank": rank, "world": world, "init": init, "backend": backend,
+                "sweep": sweep, "threshold": threshold, "root": root,
+                "size": size, "device": device,
+                "out": os.path.join(root, f"dp_{tag}_{rank}.npz")}
+        path = os.path.join(root, f"dp_{tag}_{rank}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        specs.append(spec)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", path],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.time() - t0
+    results = []
+    for rank, (p, (out, err), spec) in enumerate(zip(procs, outs, specs)):
+        need(p.returncode == 0, f"dp worker {tag} rank {rank} failed:\n"
+             + out[-3000:] + err[-6000:])
+        arrays = dict(np.load(spec["out"]))
+        os.remove(spec["out"])
+        results.append((json.loads(out.strip().splitlines()[-1]), arrays))
+    return results, wall
+
+
+def dp_compare_train(np, tag, results, ref_rec, ref_sample):
+    """The ranks of a DP training run against each other (bit-equal
+    replicas) and against the one-process run: step-1 loss within rel
+    1e-4, parameters after step 1 within rtol 5e-2, atol 3e-3
+    (``tests/test_parallel.py``'s DP tolerance after one step: an Adam
+    update whose tiny gradient flips sign moves by 2 lr), every loss
+    finite, K1 and K3 launched in each rank.  Returns the comparison
+    record, with the largest parameter difference after the last step
+    (where flips add up)."""
+    recs = [r for r, _ in results]
+    for part in ("f32_stage2", "bf16_default"):
+        need(len({r[part]["digest"] for r in recs}) == 1,
+             f"{tag} {part}: the ranks' replicas differ")
+        need(all(np.isfinite(r[part]["losses"]).all() for r in recs),
+             f"{tag} {part}: a loss is not finite: {[r[part]['losses'] for r in recs]}")
+        for r in recs:
+            # on the CPU (a rehearsal) the plain versions run: no launch
+            need(r["device"] == "cpu" or (r[part]["launches"]["K1"] > 0
+                                          and r[part]["launches"]["K3"] > 0),
+                 f"{tag} {part} rank {r['rank']}: K1/K3 never launched: "
+                 f"{r[part]['launches']}")
+    want = ref_rec["f32_stage2"]["losses"][0]
+    rel = abs(recs[0]["f32_stage2"]["losses"][0] - want) / abs(want)
+    need(rel <= 1e-4, f"{tag}: step-1 loss {recs[0]['f32_stage2']['losses'][0]} "
+         f"against one process's {want} (rel {rel})")
+    worst, last = -np.inf, 0.0
+    for k, w in ref_sample.items():
+        g = results[0][1][f"param:{k}"]
+        if k.startswith("step1:"):
+            excess = np.abs(g - w) - (3e-3 + 5e-2 * np.abs(w))
+            worst = max(worst, float(excess.max()))
+        else:
+            last = max(last, float(np.abs(g - w).max()))
+    need(worst <= 0, f"{tag}: step-1 parameters off the one-process run's "
+         f"beyond rtol 5e-2, atol 3e-3 (worst excess {worst})")
+    return {"step1_loss_rel": rel, "step1_param_worst_excess": worst,
+            f"step{DP_STEPS}_param_max_abs_diff": last,
+            "losses_f32": recs[0]["f32_stage2"]["losses"],
+            "losses_one_process_f32": ref_rec["f32_stage2"]["losses"]}
+
+
+def dp_world1_nccl(np, torch, m, batches, size):
+    """World size 1 over NCCL: DP_STEPS float32 stage-2 steps on the mesh
+    equal the steps without one bit for bit (deterministic algorithms)."""
+    m.distributed.initialize("cuda", backend="nccl",
+                             init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0)
+    try:
+        mesh = m.sharding.make_mesh()
+        cfg = m.DISYoloConfig(image_size=size, compute_dtype="float32",
+                              locked_layers=(), batch_size=2)
+        runs = []
+        with deterministic(torch):
+            for use in (None, mesh):
+                model = m.api.init_model(cfg, DP_SEED)
+                state = m.ts.init_train_state(model, mesh=use)
+                step = m.ts.make_train_step(model, mesh=use)
+                gen = torch.Generator().manual_seed(11)
+                for b in batches[:2]:
+                    _, metrics = step(state, {k: v[:2] for k, v in b.items()}, gen)
+                runs.append((metrics, state_digest(torch, model, state.opt)))
+                del model, state, step
+        torch.cuda.empty_cache()
+    finally:
+        m.distributed.shutdown()
+    (m0, d0), (m1, d1) = runs
+    equal = d0 == d1 and all(torch.equal(m0[k], m1[k]) for k in m0)
+    need(equal, "world size 1 over NCCL: the mesh step differs from the step "
+         "without a mesh")
+    return {"bit_equal": equal, "steps": 2, "loss": float(m1["total_loss"])}
+
+
+def dp_cli(root, size, device):
+    """``cli train --data-parallel`` under ``torch.distributed.run``: two
+    ranks on the one card (gloo), 2 steps at the global batch, a
+    validation and a checkpoint at step 2.  Fails unless both ranks
+    joined over gloo, rank 0 alone logged the metrics (2 train rows, 1
+    validation row) and the step's checkpoint is on disk."""
+    out = os.path.join(root, "dp_cli")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (here, os.environ.get("PYTHONPATH")))))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+           "--master-port", str(free_port()), "-m", "dis_yolo_tpu_torch.cli",
+           "train", "--data-parallel", "--dataset", root, "--output-dir", out,
+           "--image-size", str(size), "--batch-size", str(DP_GLOBAL_BATCH),
+           "--max-iter", "2", "--save-iter", "2", "--summary-iter", "1",
+           "--device", device]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=here, env=env)
+    wall = time.time() - t0
+    log = proc.stdout + proc.stderr
+    need(proc.returncode == 0, "cli train --data-parallel failed:\n" + log[-6000:])
+    for r in (0, 1):
+        need(f"rank {r} of 2, backend gloo" in log,
+             f"cli train --data-parallel: rank {r} did not join over gloo:\n"
+             + log[-3000:])
+    ckpt_dir = os.path.join(out, "checkpoint")
+    rows = open(os.path.join(ckpt_dir, "train_metrics.jsonl")).read().splitlines()
+    kinds = [json.loads(r)["kind"] for r in rows]
+    need(kinds.count("train") == 2 and kinds.count("val") == 1,
+         f"cli train --data-parallel: metric rows {kinds}")
+    need(os.path.isfile(os.path.join(ckpt_dir, "step_00000002", "state")),
+         "cli train --data-parallel: no step-2 checkpoint")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"wall_s": wall, "metric_rows": kinds}
+
+
+def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
+    """The data-parallel phase on the Solver's split (module docstring).
+    ``device="cpu"`` (a rehearsal at a small ``size``) runs it on CPU
+    ranks and leaves out the NCCL parts.  Returns (record, the DP
+    training path's launches)."""
+    m = parallel_modules()
+    dev = torch.device(device)
+    batches = dp_batches(np, m, size)
+    rec = {"nvidia_smi": smi_line}
+    t0 = time.time()
+    ref_rec, ref_sample = dp_train(np, torch, m, None, dev, batches, size)
+    rec["one_process"] = ref_rec
+    # a threshold that fills the detection slots on these images
+    cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size)
+    images = m.DefectValData(cfg, "val").get()[0]
+    model = m.api.init_model(cfg, DP_SEED, device=dev)
+    thresh = m.calibrate_threshold(model, images[:2], cfg)
+    del model
+    ref_sweep = dp_sweep(np, torch, m, None, dev, root, thresh, size)
+    if dev.type == "cuda":
+        rec["nccl_world1"] = dp_world1_nccl(np, torch, m, batches, size)
+    print(f"parallel: one process and world-size-1 NCCL done in "
+          f"{time.time() - t0:.0f} s", flush=True)
+
+    results, wall = run_dp_workers(np, root, "gloo", "gloo", 2, True, thresh,
+                                   size, device)
+    recs = [r for r, _ in results]
+    on = "cuda:0" if dev.type == "cuda" else "cpu"
+    need(all(r["backend"] == "gloo" and r["device"] == on for r in recs)
+         and not any(r["jax_imported"] for r in recs),
+         f"parallel: gloo ranks {[(r['backend'], r['device']) for r in recs]}")
+    gloo = dp_compare_train(np, "gloo 2 ranks, one card", results, ref_rec,
+                            ref_sample)
+    for route, want in ref_sweep.items():
+        for r, arrays in results:
+            got = arrays[f"boxes:{route}"]
+            keep = lambda bx: [np.flatnonzero(x[:, 5] > 0).tolist() for x in bx]
+            need(keep(got) == keep(want["boxes"]) and np.allclose(
+                got, want["boxes"], rtol=1e-5, atol=1e-6)
+                and r["sweep"][route]["mAP"] == want["mAP"],
+                f"parallel sweep {route} rank {r['rank']}: not the one-process "
+                f"sweep's (mAP {r['sweep'][route]['mAP']} vs {want['mAP']}, kept "
+                f"{[len(k) for k in keep(got)]} vs "
+                f"{[len(k) for k in keep(want['boxes'])]}, max |diff| "
+                f"{float(np.abs(got - want['boxes']).max())})")
+    gloo.update(worker_wall_s=wall, ranks=recs,
+                sweep={route: {"mAP": w["mAP"], "kept": int((w["boxes"][..., 5] > 0).sum()),
+                               "one_process_predict_s": w["predict_s"]}
+                       for route, w in ref_sweep.items()})
+    rec["gloo_2rank_one_card"] = gloo
+    launches = {"K1": sum(r[p]["launches"]["K1"] for r in recs
+                          for p in ("f32_stage2", "bf16_default")),
+                "K2": 0,
+                "K3": sum(r[p]["launches"]["K3"] for r in recs
+                          for p in ("f32_stage2", "bf16_default")),
+                "K4": 0}
+    print(f"parallel: gloo 2 ranks on one card: f32 step wall "
+          f"{[round(x, 4) for x in recs[0]['f32_stage2']['step_wall_s']]} s, bf16 "
+          f"{[round(x, 4) for x in recs[0]['bf16_default']['step_wall_s']]} s "
+          f"(one process at B={DP_GLOBAL_BATCH}: "
+          f"{[round(x, 4) for x in ref_rec['bf16_default']['step_wall_s']]} s), "
+          f"packed all-reduce {[round(x, 2) for x in recs[0]['packed_all_reduce']['ms']]} ms "
+          f"for {recs[0]['packed_all_reduce']['bytes']} B; {smi_line}", flush=True)
+
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        results, wall = run_dp_workers(np, root, "nccl", "nccl", 2, False, thresh,
+                                       size)
+        recs = [r for r, _ in results]
+        need([r["device"] for r in recs] == ["cuda:0", "cuda:1"]
+             and all(r["backend"] == "nccl" for r in recs),
+             f"parallel: nccl ranks {[(r['backend'], r['device']) for r in recs]}")
+        nccl = dp_compare_train(np, "nccl 2 ranks", results, ref_rec, ref_sample)
+        nccl.update(worker_wall_s=wall, ranks=recs)
+        rec["nccl_2rank"] = nccl
+        print(f"parallel: nccl 2 ranks: packed all-reduce "
+              f"{[round(x, 2) for x in recs[0]['packed_all_reduce']['ms']]} ms; "
+              f"{smi_line}", flush=True)
+    else:
+        rec["nccl_2rank"] = "skipped: 1 device"
+        print("parallel: nccl_2rank skipped: 1 device", flush=True)
+
+    rec["cli"] = dp_cli(root, size, device)
+    print(f"parallel: cli train --data-parallel (2 ranks, gloo) in "
+          f"{rec['cli']['wall_s']:.1f} s", flush=True)
+    rec["phase_s"] = time.time() - t0
+    return rec, launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
     parser.add_argument("--artifact-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     # a fixed cuBLAS workspace, so that the device-data phase can run
@@ -2333,6 +2782,9 @@ def main() -> None:
     import numpy as np
     import torch
 
+    if args.dp_worker:          # its rank's device is in its spec
+        dp_worker(args.dp_worker)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     if args.artifact_worker:
@@ -2810,6 +3262,14 @@ def main() -> None:
     print("device-data command: " + json.dumps(dd_record["command"]), flush=True)
     print(f"device-data training done at {time.time() - t_start:.0f} s", flush=True)
 
+    # data parallelism: two ranks on this card over gloo (training against
+    # one process, the sweep), world size 1 over NCCL, two NCCL ranks when
+    # there are two cards, and cli train --data-parallel under torchrun
+    # (the launches are the ranks' training runs, read in their processes)
+    dp_record, dp_launches = parallel_phase(np, torch, sroot, smi_line)
+    print(f"parallel path launches: {dp_launches}", flush=True)
+    print(f"parallel done at {time.time() - t_start:.0f} s", flush=True)
+
     # the serving export: artifacts saved, loaded in a fresh process and
     # run there; cli infer / export / verify-gt on the Solver's split
     xm = export_modules()
@@ -3163,6 +3623,7 @@ def main() -> None:
                    "eval": eval_launches[name],
                    "solver": solver_launches[name],
                    "device_data": dd_launches[name],
+                   "parallel": dp_launches[name],
                    "export": export_launches[name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -3240,6 +3701,8 @@ def main() -> None:
                        "launches_device_data_path": dd_launches,
                        "device_data": dd_record,
                        "device_data_timing": dd_times,
+                       "launches_parallel_path": dp_launches,
+                       "parallel": dp_record,
                        "launches_export_path": export_launches,
                        "export_path": export_record,
                        "export_timing": export_times,

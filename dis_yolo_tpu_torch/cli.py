@@ -9,9 +9,20 @@
 The subcommands take the JAX CLI's flags, plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path on the CPU, and
 without a card nothing falls back to it); ``export`` takes ``--device``
-in place of ``--platforms``.  ``train --data-parallel`` and ``eval
---data-parallel`` exit with a "not ported yet" error.  ``train
---device-corpus`` implies the device-side augs, as in the JAX CLI.
+in place of ``--platforms``.  ``train --device-corpus`` implies the
+device-side augs, as in the JAX CLI.
+
+``train --data-parallel`` and ``eval --data-parallel`` run one process
+per rank under ``torch.distributed.run``:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m dis_yolo_tpu_torch.cli train --data-parallel ...
+
+Each rank joins the process group (``parallel.distributed.initialize``:
+NCCL with a card per rank, gloo on the CPU or when ranks share a card)
+and works on its card (``LOCAL_RANK``); ``--batch-size`` is the global
+batch.  Without torchrun it is one rank.  Rank 0 alone writes the logs,
+the checkpoints and ``eval``'s result line.
 ``preprocess`` and ``synth`` need OpenCV.
 
 ``infer`` and ``verify-gt`` write their overlays as ``<stem>.png``
@@ -25,6 +36,7 @@ and fails on it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -72,15 +84,28 @@ def cmd_synth(args):
     print(f"synthetic dataset at {args.dataset}")
 
 
+@contextlib.contextmanager
+def _mesh(args, cfg):
+    """The data-parallel mesh of ``--data-parallel`` (None without it),
+    the process group left at the end."""
+    if not args.data_parallel:
+        yield None
+        return
+    from dis_yolo_tpu_torch.parallel import distributed
+    from dis_yolo_tpu_torch.parallel.sharding import make_mesh
+    distributed.initialize(args.device)
+    try:
+        yield make_mesh(args.device, axis_name=cfg.dp_axis)
+    finally:
+        distributed.shutdown()
+
+
 def cmd_train(args):
     """Returns the Solver after training (for callers in process)."""
     from dis_yolo_tpu_torch.data.val_data import DefectValData
     from dis_yolo_tpu_torch.eval.map_eval import Evaluator
     from dis_yolo_tpu_torch.train.solver import Solver
 
-    if args.data_parallel:
-        raise SystemExit("error: train --data-parallel is not ported yet to "
-                         "dis_yolo_tpu_torch (ROADMAP queue A)")
     locked = tuple(range(1, 53)) if args.stage == 1 else ()
     extra = {}
     if args.device_corpus:
@@ -89,29 +114,35 @@ def cmd_train(args):
     cfg = _make_cfg(args, locked_layers=locked, max_iter=args.max_iter,
                     save_iter=args.save_iter, summary_iter=args.summary_iter,
                     steps_per_dispatch=args.steps_per_dispatch, **extra)
-    evaluator = val = None
-    if not args.no_validation:
-        evaluator = Evaluator(cfg, "val")
-        val = DefectValData(cfg, "val")
-    solver = Solver(cfg, evaluator=evaluator, val_data=val, seed=args.seed,
-                    restore=args.restore, weights_from=args.weights_from,
-                    tf1_weights=args.tf1_weights, device=args.device)
-    solver.train()
+    with _mesh(args, cfg) as mesh:
+        evaluator = val = None
+        if not args.no_validation:
+            evaluator = Evaluator(cfg, "val")
+            val = DefectValData(cfg, "val")
+        solver = Solver(cfg, evaluator=evaluator, val_data=val, mesh=mesh,
+                        seed=args.seed, restore=args.restore,
+                        weights_from=args.weights_from,
+                        tf1_weights=args.tf1_weights, device=args.device)
+        solver.train()
     return solver
 
 
 def cmd_eval(args):
+    cfg = _make_cfg(args)
+    with _mesh(args, cfg) as mesh:
+        _evaluate(args, cfg, mesh)
+
+
+def _evaluate(args, cfg, mesh):
+    """``eval`` on this rank: each rank sweeps its share with a mesh."""
     from dis_yolo_tpu_torch.data.val_data import DefectValData
     from dis_yolo_tpu_torch.eval.map_eval import Evaluator
     from dis_yolo_tpu_torch.eval.sweep import run_split
     from dis_yolo_tpu_torch.models import api
     from dis_yolo_tpu_torch.train import checkpoint as ckpt
 
-    if args.data_parallel:
-        raise SystemExit("error: eval --data-parallel is not ported yet to "
-                         "dis_yolo_tpu_torch (ROADMAP queue A)")
-    cfg = _make_cfg(args)
-    model = api.init_model(cfg, 0, device=args.device)
+    device = args.device if mesh is None else mesh.device
+    model = api.init_model(cfg, 0, device=device)
     if args.checkpoint:
         ckpt.restore_weights(args.checkpoint, model)
     evaluator = Evaluator(cfg, args.phase, with_semantic=True)
@@ -131,10 +162,10 @@ def cmd_eval(args):
                   "(activation-range leakage only)")
         dv = deploy_variables(model.state_dict())
         cmodel = api.create_model(cfg.replace(quant=True, quant_calibrate=True),
-                                  device=args.device)
+                                  device=device)
         scales = calibrate_deploy(cmodel, dv, calib,
                                   use_pct=args.quant_calib == "pct")
-        model = api.create_model(cfg.replace(quant=True), device=args.device)
+        model = api.create_model(cfg.replace(quant=True), device=device)
         model.load_state_dict(quantize_deploy(dv, scales))
         print(f"int8 graph: {len(scales)} layers quantized "
               f"({args.quant_calib} scales, {len(calib)} calib images)")
@@ -145,7 +176,9 @@ def cmd_eval(args):
         want_semantic=True, device_score=device_score,
         gt_records=evaluator.gt_masks,
         gt_semantic=evaluator.gt_semantic if device_score else None,
-        device=args.device)
+        mesh=mesh, device=device)
+    if not ckpt.is_primary():
+        return
     if device_score:
         res = evaluator.evaluate_detections(detdata)
         miou = evaluator.miou_from_confusions(
@@ -380,7 +413,8 @@ def main(argv=None):
     p.add_argument("--tf1-weights", default=None,
                    help="converted TF1 weights (.npy) for stage-1 restore")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet")
+                   help="one rank of a data-parallel run under "
+                        "torch.distributed.run (--batch-size is global)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="train steps per block (snapped to a divisor of "
                         "--save-iter)")
@@ -396,7 +430,8 @@ def main(argv=None):
     p.add_argument("--phase", default="test", choices=["val", "test"])
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet")
+                   help="one rank of a data-parallel sweep under "
+                        "torch.distributed.run (each rank sweeps its share)")
     p.add_argument("--quant", action="store_true",
                    help="serve the int8 post-training-quantized graph "
                         "(calibrated on train-split images)")

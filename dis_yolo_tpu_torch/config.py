@@ -4,9 +4,10 @@ A copy of ``dis_yolo_tpu/config.py`` (the port imports nothing of the JAX
 package): the same frozen dataclass with the same field names, defaults
 and properties, so the JAX reference and the port are built from the same
 keyword arguments.  The comments describe what each knob means in the
-port; the knobs of the data-parallel layer it does not have yet
-(``dp_axis``, ``bn_axis``) are kept for that parity and documented in the
-JAX package's copy.
+port.  ``dp_axis`` names the data-parallel mesh's axis
+(``parallel.sharding.make_mesh``); ``bn_axis``, as in JAX, names the axis
+train-mode BatchNorm reduces over, which the port's mesh train step
+always does over its mesh (``check_trainable``).
 """
 
 from __future__ import annotations
@@ -180,18 +181,24 @@ class DISYoloConfig:
     def data_path(self, phase: str) -> str:
         return os.path.join(self.dataset, phase)
 
-    def check_trainable(self) -> None:
-        """Raise if a training knob asks for what the port's train step
-        does not have yet (sync-BN) or the graph is one of the
-        inference-only serving graphs; ``device_corpus`` without
-        ``device_side_augs`` is a ValueError (the host no longer holds
-        the pixels to flip)."""
+    def check_trainable(self, mesh=None) -> None:
+        """Raise if the graph is one of the inference-only serving
+        graphs.  ``device_corpus`` without ``device_side_augs`` is a
+        ValueError (the host no longer holds the pixels to flip), and so
+        is a ``bn_axis`` that is not the axis of the ``mesh`` trained on
+        (sync-BN needs that mesh's step)."""
         for name, ported in UNPORTED_TRAIN_FIELDS.items():
             value = getattr(self, name)
             if value != ported:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to dis_yolo_tpu_torch's "
                     f"train step yet (only {ported!r} is)")
+        if self.bn_axis is not None and (
+                mesh is None or mesh.axis_name != self.bn_axis):
+            raise ValueError(
+                f"bn_axis={self.bn_axis!r} needs a data-parallel mesh with "
+                f"that axis to train on (got {mesh!r}): the mesh step "
+                "synchronizes BatchNorm over its axis")
         if self.device_corpus and not self.device_side_augs:
             raise ValueError("device_corpus requires device_side_augs=True: "
                              "the host no longer holds pixels, so flips and "
@@ -208,10 +215,9 @@ class DISYoloConfig:
         return "\n".join(lines) + "\n"
 
 
-# training knobs and graphs, and the one value of each that the train step
-# supports: sync-BN belongs to the data-parallel layer, not ported yet, and
-# the serving graphs are inference only
-UNPORTED_TRAIN_FIELDS = {"bn_axis": None, "deploy": False, "quant": False,
+# the serving graphs, and the one value of each that the train step
+# supports: they are inference only
+UNPORTED_TRAIN_FIELDS = {"deploy": False, "quant": False,
                          "quant_calibrate": False, "s2d_stem": False}
 
 DEFAULT_CONFIG = DISYoloConfig()

@@ -23,6 +23,12 @@ decisions, true boxes and grids are equal; image pixels differ by at
 most 1 LSB (OpenCV's fixed-point resize against float bilinear) and mask
 pixels only at .5 bilinear knife edges.  Needs ``cfg.device_side_augs``: the host no
 longer holds the pixels to flip.
+
+Data parallelism: every rank uploads the whole corpus to its device (the
+JAX package replicates it over the mesh), the same seeded
+``CorpusTrainData`` makes the global batch's decisions on every rank,
+and each rank assembles its own rows of them (``parallel.sharding``'s
+``Mesh.rows``; the Solver hands the mesh corpus step those rows).
 """
 
 from __future__ import annotations

@@ -26,6 +26,13 @@ calls are outside that window.  In the ``device_score`` route the
 scoring is inside the predict seconds, in the other two it lands in the
 evaluator's ``t_post_s``: compare routes by their totals.
 
+Data parallelism (``mesh``): ``cfg.batch_size`` is the global batch,
+and each rank sweeps its rows of every global batch (batches of
+``cfg.batch_size / mesh.size``) on ``mesh.device``, by any route.  The
+ranks' detdata is then gathered to every rank in image order, so the
+mAP and mIoU are the one-process sweep's; the predict seconds are the
+slowest rank's.
+
 Everything runs on ``device`` (default ``cuda``; ``device="cpu"`` runs
 the plain PyTorch path on the CPU).  The paste's float32 products refuse
 TF32 on CUDA (``ops.paste``), and this module leaves that check on.
@@ -38,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.models import api
@@ -164,11 +172,18 @@ def run_split(cfg: DISYoloConfig, model, images: np.ndarray,
     entries also carry per-image confusion totals
     (``Evaluator.miou_from_confusions``).  ``timing["fetch_s"]``, when a
     dict is passed, accumulates the time spent waiting for results.
+    With a ``mesh`` (the module docstring) every rank calls this with the
+    whole split and gets the whole split's detdata.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "run_split(mesh=...): the data-parallel sweep belongs to the "
-            "port's parallel layer, not ported yet (ROADMAP A.7)")
+        return _run_split_dp(cfg, model, images, names, windows, mesh,
+                             paste_cache, dict(
+                                 device_paste=device_paste,
+                                 gt_sizes=gt_sizes, predict_fn=predict_fn,
+                                 timing=timing, want_semantic=want_semantic,
+                                 device_score=device_score,
+                                 gt_records=gt_records,
+                                 gt_semantic=gt_semantic))
     dev = api.resolve_device(device)
     b = cfg.batch_size
     cache = paste_cache if paste_cache is not None else {}
@@ -319,3 +334,30 @@ def run_split(cfg: DISYoloConfig, model, images: np.ndarray,
 
     t_pred = _pipelined(range(0, n, b), launch, collect, dev, timing)
     return detdata, t_pred
+
+
+def _run_split_dp(cfg: DISYoloConfig, model, images: np.ndarray,
+                  names: List[str], windows: np.ndarray, mesh,
+                  paste_cache: Optional[Dict], kw: Dict
+                  ) -> Tuple[List[Dict], float]:
+    """``run_split`` on this rank's share, the detdata gathered."""
+    b = cfg.batch_size
+    part = mesh.rows(b)
+    cache = paste_cache if paste_cache is not None else {}
+    # the share is cached with the split it came from, so a periodic
+    # sweep finds its images (and their device copy) again
+    share = cache.get("__dp_share__")
+    if share is None or share[0] is not images:
+        idx = [i for i in range(len(names)) if part.start <= i % b < part.stop]
+        share = cache["__dp_share__"] = (images, idx, images[idx],
+                                         windows[idx])
+    _, idx, my_images, my_windows = share
+    local, t_pred = ([], 0.0) if not idx else run_split(
+        cfg.replace(batch_size=part.stop - part.start), model, my_images,
+        [names[i] for i in idx], my_windows, paste_cache=cache,
+        device=mesh.device, **kw)
+    parts: List = [(local, t_pred)] * mesh.size
+    if dist.is_initialized():
+        dist.all_gather_object(parts, (local, t_pred), group=mesh.group)
+    by_name = {d["imname"]: d for det, _ in parts for d in det}
+    return [by_name[nm] for nm in names], max(t for _, t in parts)

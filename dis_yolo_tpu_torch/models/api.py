@@ -103,11 +103,22 @@ def forward(model: DISYolo, images, device=None):
 
 
 def predict(model: DISYolo, images, windows,
-            obj_thresh: Optional[float] = None, device=None
+            obj_thresh: Optional[float] = None, device=None, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full inference: images [B,H,W,3], windows [B,4] ->
     (detections [B,D,6] zero-padded, masks [B,D,S,S] sigmoid inside the
-    box, 0 outside and for padding rows)."""
+    box, 0 outside and for padding rows).
+
+    With a ``mesh`` (``parallel.sharding.Mesh``; JAX's
+    ``make_jitted_predict(mesh=...)``), ``images`` and ``windows`` are
+    the global batch and each rank predicts its rows (``Mesh.rows``) on
+    ``mesh.device`` with its replica of the model: the outputs are that
+    rank's rows and stay on it.  Every step is per image, so nothing is
+    exchanged."""
+    if mesh is not None:
+        rows = mesh.rows(images.shape[0])
+        images, windows = images[rows], windows[rows]
+        device = mesh.device
     raws = forward(model, images, device)
     return predict_from_outputs(model.cfg, raws, windows, obj_thresh, device)
 

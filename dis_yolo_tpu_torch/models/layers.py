@@ -18,7 +18,13 @@ JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
     freeze) normalizes with its running statistics and leaves them
     untouched even in train mode;
   * ``remat=True`` recomputes conv/BN/activation in the backward
-    (``torch.utils.checkpoint``), the running statistics moved once.
+    (``torch.utils.checkpoint``), the running statistics moved once;
+  * sync-BN (Flax ``BatchNorm(axis_name=...)``, the mesh train step's):
+    inside ``sync_batch_norm(model, mesh)`` the batch moments ``E[x]``
+    and ``E[x^2]`` are averaged over the mesh before the variance is
+    formed, so every rank normalizes with the global batch's statistics
+    and moves its running statistics alike; the backward averages their
+    cotangents the same way (``parallel.distributed.all_reduce_mean``).
 
 The serving graphs add ``DeployConv`` (conv + bias + leaky, BN folded
 away) and ``CommutedConcatConvBN`` (the decoder's concat 1x1 run before
@@ -27,10 +33,14 @@ the upsample); ``models/quant.py`` holds the int8 ``QuantConv``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from dis_yolo_tpu_torch.parallel.distributed import all_reduce_mean
 
 BN_DECAY = 0.997                 # Flax's momentum: new = decay*old + ...
 BN_MOMENTUM = 1.0 - BN_DECAY     # nn.BatchNorm2d's convention
@@ -66,12 +76,17 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int):
     return F.conv2d(x, weight, bias, stride, 0)
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d):
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None):
     """Flax ``BatchNorm(use_running_average=False)`` on an NCHW float32
-    tensor: normalize with the biased batch statistics.  Returns (out,
+    tensor: normalize with the biased batch statistics, over the mesh's
+    global batch when a ``mesh`` is given (``axis_name``).  Returns (out,
     mean, var); ``update_running_stats`` moves ``bn``'s statistics."""
     mean = x.mean((0, 2, 3))
-    var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+    sq = (x * x).mean((0, 2, 3))
+    if mesh is not None:
+        # Flax pmeans both moments, then forms the variance
+        mean, sq = all_reduce_mean(torch.stack([mean, sq]), mesh).unbind(0)
+    var = torch.clamp_min(sq - mean * mean, 0.0)
     mul = torch.rsqrt(var + BN_EPS) * bn.weight
     out = (x - mean[:, None, None]) * mul[:, None, None] \
         + bn.bias[:, None, None]
@@ -100,6 +115,9 @@ class ConvBN(nn.Module):
     the block's input is kept.  The recomputed function returns the batch
     moments and moves no statistic: the running statistics move once,
     outside it.
+
+    ``bn_mesh`` (None outside ``sync_batch_norm``) is the mesh whose
+    global batch a train-mode forward normalizes over.
     """
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
@@ -114,6 +132,7 @@ class ConvBN(nn.Module):
         self.dtype = dtype
         self.lock = lock
         self.remat = remat
+        self.bn_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.remat and self.training and torch.is_grad_enabled():
@@ -138,12 +157,28 @@ class ConvBN(nn.Module):
         moments = None
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and not self.lock:
-            x, mean, var = batch_norm_train(x, bn)
+            x, mean, var = batch_norm_train(x, bn, self.bn_mesh)
             moments = (mean, var)
         else:
             x = F.batch_norm(x, bn.running_mean, bn.running_var,
                              bn.weight, bn.bias, False, 0.0, BN_EPS)
         return leaky_relu(x.to(self.dtype), self.alpha), moments
+
+
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, mesh):
+    """While the block runs, every ``ConvBN`` of ``model`` (the commuted
+    fusion nodes too) normalizes a train-mode batch over ``mesh``'s
+    global batch; ``mesh`` None changes nothing."""
+    layers = [m for m in model.modules() if isinstance(m, ConvBN)] \
+        if mesh is not None else []
+    for layer in layers:
+        layer.bn_mesh = mesh
+    try:
+        yield
+    finally:
+        for layer in layers:
+            layer.bn_mesh = None
 
 
 class CommutedConcatConvBN(ConvBN):

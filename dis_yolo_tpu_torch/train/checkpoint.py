@@ -18,6 +18,13 @@ renamed when complete, so an interrupted save never looks like a
 checkpoint.  Orbax checkpoints of the JAX package do not load here: the
 weights cross over through ``models/weights.py``'s tree bridge.
 
+Data parallelism (a process group of several ranks, the state
+replicated): rank 0 (``is_primary``) alone writes, then every rank waits
+at a barrier (``_sync``), so every rank can restore the step when the
+save returns; the background saver falls back to that synchronous save,
+as the JAX package's does on several processes.  Pruning and
+``best.json`` are rank 0's too.
+
 ``save_checkpoint_background`` clones the state on the device (fast,
 decoupled from the live tensors the next step updates in place), then
 one worker thread copies the clone to the host on a side stream and
@@ -48,6 +55,9 @@ from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from dis_yolo_tpu_torch.parallel.distributed import process_count
 
 # Layers restored in stage 1 (the reference's train_yolo3_mask.py:77-103)
 STAGE1_CONV_BN = tuple(range(1, 53)) + tuple(range(53, 59)) + \
@@ -56,9 +66,19 @@ STAGE1_CONV_BIAS = (59, 67, 75)
 
 
 def is_primary() -> bool:
-    """True on the process that owns host-side artifacts (logs, pruning);
-    always, until the port has a parallel layer."""
-    return True
+    """True on the process that owns host-side artifacts (logs, pruning,
+    checkpoints): rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sync(tag: str) -> None:
+    """A barrier of every process (none with one process); ``tag`` names
+    it in an error."""
+    if process_count() > 1:
+        try:
+            dist.barrier()
+        except RuntimeError as e:
+            raise RuntimeError(f"checkpoint barrier {tag!r} failed") from e
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
@@ -96,10 +116,14 @@ def _write(ckpt_dir: str, step: int, host: Dict) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
-    """Save the whole train state and the weights alone, synchronously.
+    """Save the whole train state and the weights alone, synchronously:
+    rank 0 writes, and every rank returns once the step is on disk.
     Returns the step's directory."""
     wait_for_checkpoints()
-    return _write(ckpt_dir, step, _host_state(state))
+    if is_primary():
+        _write(ckpt_dir, step, _host_state(state))
+    _sync(f"save step {step}")
+    return _step_dir(ckpt_dir, step)
 
 
 # ---------------------------------------------------------------- background
@@ -182,8 +206,12 @@ def save_checkpoint_background(ckpt_dir: str, state, step: int) -> str:
 
     Waits for the previous background save first (at most one snapshot
     queued; its failure raises here).  Returns the step's directory,
-    which appears when the write is complete."""
+    which appears when the write is complete.  With several processes
+    it is ``save_checkpoint``: the barrier after rank 0's write cannot
+    run on a worker thread of every rank."""
     global _SAVE_POOL
+    if process_count() > 1:
+        return save_checkpoint(ckpt_dir, state, step)
     wait_for_checkpoints()
     if _SAVE_POOL is None:
         _SAVE_POOL = concurrent.futures.ThreadPoolExecutor(

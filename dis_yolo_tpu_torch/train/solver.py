@@ -26,10 +26,20 @@ photometric (``host_augs=False``) and the step draws them from a second
 generator on the device, seeded ``seed + 2``.  With
 ``cfg.device_corpus`` the split is uploaded once
 (``data/device_corpus.py``) and each block assembles its batches on the
-device (``train_step.make_corpus_multi_step``).  Sync-BN (``bn_axis``) is
-refused by ``cfg.check_trainable``, and a ``mesh`` raises: both belong
-to the data-parallel layer, not ported yet.  Everything runs on
+device (``train_step.make_corpus_multi_step``).  Everything runs on
 ``cuda`` unless ``device="cpu"`` is passed.
+
+Data parallelism (``mesh``, a ``parallel.sharding.Mesh``; one Solver per
+rank, on ``mesh.device``): ``cfg.batch_size`` is the global batch.  Each
+rank's wire loader is a ``ParallelTrainData`` with ``host_shard=(rank,
+size)`` (inline with ``loader_workers=0``), which builds only its rows
+of each global batch; with ``device_corpus`` every rank holds the whole
+corpus and the same decisions, and hands the step its rows.  The model
+starts as rank 0's (broadcast after any restore), the steps are the mesh
+steps (``train_step``), and validation sweeps each rank's share of the
+split (``run_split(mesh=...)``).  Rank 0 alone logs, writes the config,
+``best.json`` and the checkpoints (``train.checkpoint``); every rank
+reads them.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from dis_yolo_tpu_torch.data.device_corpus import CorpusTrainData, upload_corpus
 from dis_yolo_tpu_torch.data.val_data import DefectValData
 from dis_yolo_tpu_torch.eval.map_eval import Evaluator
 from dis_yolo_tpu_torch.models import api
+from dis_yolo_tpu_torch.parallel.sharding import replicate
 from dis_yolo_tpu_torch.train import checkpoint as ckpt
 from dis_yolo_tpu_torch.train import train_step as ts
 from dis_yolo_tpu_torch.utils.metrics_log import MetricLogger
@@ -63,13 +74,11 @@ class Solver:
                  weights_from: Optional[str] = None,
                  tf1_weights: Optional[str] = None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Solver(mesh=...): data-parallel training belongs to the "
-                "port's parallel layer, not ported yet (ROADMAP A.7)")
-        cfg.check_trainable()
+        cfg.check_trainable(mesh)
         self.cfg = cfg
-        self.device = api.resolve_device(device)
+        self.mesh = mesh
+        self.device = api.resolve_device(
+            device if mesh is None else mesh.device)
         # with device-side augs the host loader must not flip or apply the
         # photometric augs too (they would apply twice)
         host_augs = not cfg.device_side_augs
@@ -80,6 +89,12 @@ class Solver:
             # the decoded split goes to the device once; the loader ships
             # the placement decisions only
             self.data = CorpusTrainData(cfg, "train", seed=seed)
+        elif mesh is not None:
+            workers = None if cfg.loader_workers < 0 else cfg.loader_workers
+            self.data = ParallelTrainData(cfg, "train", seed=seed,
+                                          host_augs=host_augs,
+                                          workers=workers,
+                                          host_shard=(mesh.rank, mesh.size))
         elif cfg.loader_workers:
             workers = None if cfg.loader_workers < 0 else cfg.loader_workers
             self.data = ParallelTrainData(cfg, "train", seed=seed,
@@ -113,20 +128,25 @@ class Solver:
             # optimizer and the step start fresh (the trainable set
             # differs between stages)
             ckpt.restore_weights(weights_from, self.model)
-        self.state = ts.init_train_state(self.model, device=self.device)
+        self.state = ts.init_train_state(self.model, device=self.device,
+                                         mesh=mesh)
         if restore == "auto":
             restore = ckpt.latest_checkpoint(self.ckpt_dir)
-            if restore:
+            if restore and ckpt.is_primary():
                 print(f"Auto-resuming from {restore}")
         if restore:
             ckpt.restore_checkpoint(restore, self.state)
+        if mesh is not None:
+            replicate(mesh, self.model)
         if self.device_corpus is not None:
             corpus_fn = ts.make_corpus_multi_step(self.model,
-                                                  device=self.device)
+                                                  device=self.device,
+                                                  mesh=mesh)
             self.step_fn = lambda state, block, rng, aug_rng: corpus_fn(
                 state, self.device_corpus, block, rng, aug_rng)
         else:
-            self.step_fn = ts.make_multi_step(self.model, device=self.device)
+            self.step_fn = ts.make_multi_step(self.model, device=self.device,
+                                              mesh=mesh)
         self.rng = torch.Generator().manual_seed(seed + 1)
         self.aug_rng = (torch.Generator(device=self.device).manual_seed(
             seed + 2) if cfg.device_side_augs else None)
@@ -162,7 +182,7 @@ class Solver:
             device_paste=device_paste, gt_sizes=self.evaluator.gt_sizes,
             paste_cache=self._paste_cache, want_semantic=False,
             device_score=device_score, gt_records=self.evaluator.gt_masks,
-            device=self.device)
+            mesh=self.mesh, device=self.device)
         result = self.evaluator.evaluate_detections(detdata)
         result["t_device_s"] = t_pred
         return result
@@ -228,13 +248,19 @@ class Solver:
             print(f"steps_per_dispatch {cfg.steps_per_dispatch} -> {k} "
                   f"(snapped to a divisor of save_iter {cfg.save_iter})")
 
+        # the corpus loader makes the global decisions: a rank takes its
+        # rows (the wire loader of a mesh builds only those)
+        local = self.mesh is not None and self.device_corpus is not None
+
         def blocks():
             todo = max_iter - start + 1
             while todo > 0:
                 m = min(k, todo)
                 bats = [self.data.next_prefetched() for _ in range(m)]
                 todo -= m
-                yield {key: np.stack([b[key] for b in bats]) for key in bats[0]}
+                yield {key: np.stack([b[key][self.mesh.rows(len(b[key]))]
+                                      if local else b[key] for b in bats])
+                       for key in bats[0]}
 
         self.data.start_prefetch()
         try:

@@ -45,7 +45,26 @@ The training knobs, as in the JAX package:
     consumed in the order of K single steps; ``make_corpus_multi_step``:
     the same over a device-resident corpus (``data/device_corpus.py``),
     each step's batch assembled on the device.
-Sync-BN (``cfg.bn_axis``) is refused by ``cfg.check_trainable()``.
+
+Data parallelism (``mesh=``, a ``parallel.sharding.Mesh``; JAX's
+``shard_map`` step): each rank is given its rows of the global batch
+(``Mesh.rows``; a block its rows of each step, dim 1) and holds the
+whole replicated state.  Train-mode BatchNorm is synchronized over the
+mesh (``layers.sync_batch_norm``: the global batch's moments, their
+cotangents averaged in the backward), and right after the gradients
+(and ``grad_accum``'s accumulation) one packed all-reduce averages every
+gradient taken and the metrics, JAX's one ``pmean``.  Only then come
+the statistics guard, the finite check and Adam, so every rank decides
+the same skip and the replicas stay bit-equal.  The step's gradient is
+the one-process gradient of the global batch.  The ROI uniforms and the
+augmentation draws are drawn for the global batch, from generators
+seeded alike on every rank, and each rank takes its rows.  For the
+uniforms that is what JAX does (global per-image keys, sharded); for
+the augmentation it is not: JAX draws each device's from
+``fold_in(key, axis_index)``.  Drawing them globally makes a mesh run
+equal the one-process run on the global batch, which the tests hold.
+``grad_accum`` splits each rank's rows, as in JAX: microbatch i of the
+step is the i-th microbatch of every rank.
 
 The step synchronizes with the host in three places, and a block in
 each of its steps: the finite check, the statistics guard and the
@@ -53,7 +72,8 @@ fixpoint NMS's predicates.
 
 Entry points: ``init_train_state``, ``make_train_step``,
 ``make_multi_step`` and ``make_corpus_multi_step`` run on CUDA unless
-``device="cpu"`` is passed, and raise when there is no card.
+``device="cpu"`` is passed (or a mesh on the CPU), and raise when there
+is no card.
 """
 
 from __future__ import annotations
@@ -73,9 +93,10 @@ from dis_yolo_tpu_torch.losses.mask_loss import (draw_uniforms,
 from dis_yolo_tpu_torch.losses.yolo_loss import yolo_loss
 from dis_yolo_tpu_torch.models.api import _to_device, resolve_device
 from dis_yolo_tpu_torch.models.dis_yolo import DISYolo
-from dis_yolo_tpu_torch.models.layers import ConvBN
+from dis_yolo_tpu_torch.models.layers import ConvBN, sync_batch_norm
 from dis_yolo_tpu_torch.ops import nms
 from dis_yolo_tpu_torch.ops.decode import decode_all
+from dis_yolo_tpu_torch.parallel.distributed import all_reduce_mean_
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_ERRORS = 100
@@ -300,8 +321,16 @@ class TrainState:
     step: int = 0
 
 
-def _check_model(model: DISYolo, device) -> torch.device:
-    model.cfg.check_trainable()
+def _check_model(model: DISYolo, device, mesh=None) -> torch.device:
+    """The device a train entry point runs on: ``mesh.device`` with a
+    mesh (``device``, when given too, must be of its type)."""
+    model.cfg.check_trainable(mesh)
+    if mesh is not None:
+        if device is not None and torch.device(device).type \
+                != mesh.device.type:
+            raise ValueError(f"device {device} but the mesh is on "
+                             f"{mesh.device}")
+        device = mesh.device
     dev = resolve_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"model on {next(model.parameters()).device}, "
@@ -309,15 +338,32 @@ def _check_model(model: DISYolo, device) -> torch.device:
     return dev
 
 
-def init_train_state(model: DISYolo, device=None) -> TrainState:
+def init_train_state(model: DISYolo, device=None, mesh=None) -> TrainState:
     """Adam state with zero moments for ``model``'s trainable parameters
-    (the locks of ``model.cfg``)."""
-    _check_model(model, device)
+    (the locks of ``model.cfg``); ``mesh`` as ``make_train_step``'s."""
+    _check_model(model, device, mesh)
     return TrainState(model, adam_init(dict(model.named_parameters()),
                                        model.cfg))
 
 
-def make_train_step(model: DISYolo, device=None):
+def _mean_over_mesh(grads, metrics: Dict[str, torch.Tensor], mesh):
+    """The one collective of the step: every gradient and the metrics,
+    packed into one flat tensor (the metrics cast to the gradients'
+    dtype, as JAX packs them), averaged over the mesh, unpacked."""
+    dtype = grads[0].dtype
+    names = list(metrics)
+    packed = torch.cat([g.reshape(-1) for g in grads]
+                       + [torch.stack([metrics[k].to(dtype) for k in names])])
+    all_reduce_mean_(packed, mesh)
+    out, at = [], 0
+    for g in grads:
+        out.append(packed[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return out, {k: packed[at + i].to(metrics[k].dtype)
+                 for i, k in enumerate(names)}
+
+
+def make_train_step(model: DISYolo, device=None, mesh=None):
     """``step(state, batch, generator, aug_generator=None) -> (state,
     metrics)``.
 
@@ -330,8 +376,12 @@ def make_train_step(model: DISYolo, device=None):
     locked layers' parameters keep ``requires_grad`` only when their
     gradients enter the finite check (``cfg.skip_nonfinite_updates``).
     ``metrics`` are detached scalar tensors on the device.
+
+    With a ``mesh`` (the module docstring): ``batch`` holds this rank's
+    rows, the step runs on ``mesh.device``, and ``metrics`` are the
+    global batch's, equal on every rank.
     """
-    dev = _check_model(model, device)
+    dev = _check_model(model, device, mesh)
     cfg = model.cfg
     mask = trainable_mask([n for n, _ in model.named_parameters()], cfg)
     params = dict(model.named_parameters())
@@ -353,21 +403,28 @@ def make_train_step(model: DISYolo, device=None):
             raise ValueError("state was built for another model")
         batch = prepare_batch({k: _to_device(v, dev) for k, v in batch.items()})
         bsz = batch["images"].shape[0]
+        # the draws are the global batch's; this rank's are its rows
+        world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        rows = slice(rank * bsz, (rank + 1) * bsz)
         if cfg.device_side_augs:
             if aug_generator is None or aug_generator.device.type != dev.type:
                 raise ValueError("device_side_augs needs aug_generator, a "
                                  f"torch.Generator on {dev}")
             flips, photo = cfg.flipped, cfg.blur_noise_light
-            draws = draw_augment(aug_generator, bsz, cfg.image_size, flips,
-                                 photo)
-            batch = augment_batch(batch, draws, cfg.image_size, flips, photo)
+            draws = draw_augment(aug_generator, world * bsz, cfg.image_size,
+                                 flips, photo)
+            batch = augment_batch(batch, {k: v[rows] for k, v in draws.items()},
+                                  cfg.image_size, flips, photo)
         n_gt = batch["true_boxes"].shape[-2]
-        u_prop, u_gt = draw_uniforms(generator, bsz, cfg.max_detection, n_gt,
-                                     dev)
+        u_prop, u_gt = draw_uniforms(generator, world * bsz,
+                                     cfg.max_detection, n_gt, dev)
         old = [t.clone() for t in unlocked_stats] \
             if cfg.skip_nonfinite_updates else None
-        grads, metrics = grads_and_aux(model, batch, u_prop, u_gt,
-                                       wanted_params)
+        with sync_batch_norm(model, mesh):
+            grads, metrics = grads_and_aux(model, batch, u_prop[rows],
+                                           u_gt[rows], wanted_params)
+        if mesh is not None:
+            grads, metrics = _mean_over_mesh(grads, metrics, mesh)
         with torch.no_grad():
             # the statistics guard: a step that made any statistic
             # non-finite puts the whole tree back
@@ -398,16 +455,17 @@ def _unstack(block: Dict, dev: torch.device):
     return [{key: v[i] for key, v in block.items()} for i in range(k)]
 
 
-def make_multi_step(model: DISYolo, device=None):
+def make_multi_step(model: DISYolo, device=None, mesh=None):
     """``multi(state, block, generator, aug_generator=None) -> (state,
     metrics)``: K train steps over a stacked block (each field [K, B,
     ...], K its leading dimension), the counterpart of JAX's
     ``make_jitted_multi_step``.  The steps are ``make_train_step``'s and
     consume both generators in the order K single steps do, so a block
     equals K steps seed for seed; each metric comes back stacked [K] on
-    the device."""
-    dev = _check_model(model, device)
-    step = make_train_step(model, device=dev)
+    the device.  With a ``mesh`` the block holds this rank's rows of
+    each step (dim 1) and the steps are the mesh step."""
+    dev = _check_model(model, device, mesh)
+    step = make_train_step(model, device=dev, mesh=mesh)
 
     def multi(state: TrainState, block, generator: torch.Generator,
               aug_generator: Optional[torch.Generator] = None):
@@ -417,18 +475,21 @@ def make_multi_step(model: DISYolo, device=None):
     return multi
 
 
-def make_corpus_multi_step(model: DISYolo, device=None):
+def make_corpus_multi_step(model: DISYolo, device=None, mesh=None):
     """``multi(state, corpus, params, generator, aug_generator) ->
     (state, metrics)``: K train steps over a device-resident corpus
     (``device_corpus.upload_corpus``), the counterpart of JAX's
     ``make_jitted_corpus_multi_step``.  ``params`` is a stacked block of
     ``CorpusTrainData`` batches [K, B, ...]; each step's batch is
     assembled on the device (``device_corpus.make_assemble_fn``) and
-    augmented there (needs ``cfg.device_side_augs``)."""
-    dev = _check_model(model, device)
+    augmented there (needs ``cfg.device_side_augs``).  With a ``mesh``
+    every rank holds the whole corpus and ``params`` holds this rank's
+    rows of each step's decisions (dim 1): the rank assembles its own
+    rows, and the steps are the mesh step."""
+    dev = _check_model(model, device, mesh)
     if not model.cfg.device_side_augs:
         raise ValueError("the corpus step needs cfg.device_side_augs=True")
-    step = make_train_step(model, device=dev)
+    step = make_train_step(model, device=dev, mesh=mesh)
     assemble = make_assemble_fn(model.cfg)
 
     def multi(state: TrainState, corpus: Dict[str, torch.Tensor], params,

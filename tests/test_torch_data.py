@@ -40,7 +40,11 @@ from dis_yolo_tpu_torch import native
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.data import augment, dataset, image_io, rasterize
 
+from tests.test_torch_eval import jax_numpy_fill  # noqa: F401
+
 cv2 = pytest.importorskip("cv2")
+# the JAX loader's masks from its numpy fill (tests/test_torch_eval.py)
+pytestmark = pytest.mark.usefixtures("jax_numpy_fill")
 
 # uint8 pixels: at most 1 LSB off, on at most this share of the pixels
 PIXEL_SHARE = 1e-3
@@ -272,7 +276,7 @@ def test_native_fill_matches_numpy_and_jax():
 
 
 @pytest.fixture(scope="module")
-def synth_root(tmp_path_factory):
+def synth_root(tmp_path_factory, jax_numpy_fill):
     """``tests/test_data_pipeline.py``'s recipe: the JAX package's
     synthetic generator and preprocessor (JPEG images, real contours)."""
     from dis_yolo_tpu.data.preprocess import build_ground_truth_cache

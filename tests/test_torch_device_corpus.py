@@ -23,6 +23,10 @@ from dis_yolo_tpu.data import device_corpus as jax_dc
 from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.data import dataset
 from dis_yolo_tpu_torch.data import device_corpus as dc
+from tests.test_torch_eval import jax_numpy_fill  # noqa: F401
+
+# the JAX corpus's masks from its numpy fill (tests/test_torch_eval.py)
+pytestmark = pytest.mark.usefixtures("jax_numpy_fill")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -46,9 +50,10 @@ def _native_cpu_convs():
 
 
 @pytest.fixture(scope="module")
-def synth_root(tmp_path_factory):
+def synth_root(tmp_path_factory, jax_numpy_fill):
     """The JAX package's synthetic split (``tests/test_device_corpus.py``'s
-    recipe: 6 images of 160 px, seed 11)."""
+    recipe: 6 images of 160 px, seed 11), rasterized by JAX's numpy
+    fill."""
     pytest.importorskip("cv2")
     from dis_yolo_tpu.data.preprocess import build_ground_truth_cache
     from dis_yolo_tpu.data.synthetic import generate_dataset

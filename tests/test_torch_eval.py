@@ -48,6 +48,21 @@ def _few_torch_threads():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(scope="module")
+def jax_numpy_fill():
+    """The JAX package's polygon fill pinned to its numpy scanline while a
+    module runs (imported by the port's tests that compare with masks the
+    JAX package rasterized).  Its default engine is the native C++ fill,
+    built in place at first use: a process whose build or load failed
+    falls back to OpenCV's ``fillPoly``, which rounds other edge pixels.
+    The numpy scanline has the native fill's semantics, and the port's."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_rasterize, "_HAS_CV2", False)
+    mp.setattr(jax_rasterize, "_native_available", lambda: False)
+    yield
+    mp.undo()
+
+
 @pytest.fixture()
 def jax_numpy_only(monkeypatch):
     """The JAX package without OpenCV and without its native fill."""

@@ -17,6 +17,7 @@ from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_bwd_cuda,
                                                   extract_planes_cuda)
 from dis_yolo_tpu_torch.ops.custom_ops import (assemble_masks_batch_cuda,
                                                nms_cuda)
+from dis_yolo_tpu_torch.parallel.sharding import make_mesh
 from dis_yolo_tpu_torch.train import train_step
 
 
@@ -64,8 +65,13 @@ def test_port_imports_no_jax():
                    "utils/timer.py", "utils/metrics_log.py",
                    "utils/profiling.py", "utils/runtime.py", "cli.py",
                    # the serving export
-                   "export.py", "ops/custom_ops.py", "utils/visualize.py"):
+                   "export.py", "ops/custom_ops.py", "utils/visualize.py",
+                   # the data-parallel layer
+                   "parallel/__init__.py", "parallel/distributed.py",
+                   "parallel/sharding.py"):
         assert port / module in files, module
+    # chip_smoke's worker processes run from the same file
+    assert "--dp-worker" in (ROOT / "chip_smoke.py").read_text()
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -209,11 +215,12 @@ def test_unported_config_raises(field, value):
     ("device_corpus", True), ("steps_per_dispatch", 4), ("bn_axis", "dp"),
     ("device_corpus_without_augs", True)])
 def test_unported_training_knob_raises(field, value):
-    """The single-card training knobs are ported: check_trainable accepts
-    them and the train entry points build (device_corpus with the
-    device-side augs it needs; without them a ValueError).  Sync-BN
-    (bn_axis) belongs to the data-parallel layer, not ported: it raises
-    in check_trainable and at the train entry points."""
+    """The training knobs are ported: check_trainable accepts them and
+    the train entry points build (device_corpus with the device-side augs
+    it needs; without them a ValueError).  Sync-BN (bn_axis) is the mesh
+    step's: without a mesh of that axis it is a ValueError in
+    check_trainable and at the train entry points; with one, they
+    build."""
     cfg = DISYoloConfig(image_size=64)
     cfg.check_trainable()
     if field == "device_corpus_without_augs":
@@ -239,14 +246,20 @@ def test_unported_training_knob_raises(field, value):
             assert callable(train_step.make_corpus_multi_step(model,
                                                               device="cpu"))
         return
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(ValueError, match=field):
         knob.check_trainable()
     model = api.create_model(cfg, device="cpu")
     model.cfg = knob
     for call in (lambda: train_step.init_train_state(model, device="cpu"),
                  lambda: train_step.make_train_step(model, device="cpu")):
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(ValueError, match=field):
             call()
+    mesh = make_mesh("cpu")
+    knob.check_trainable(mesh)
+    state = train_step.init_train_state(model, mesh=mesh)
+    assert state.step == 0 and state.opt.mu
+    for make in (train_step.make_train_step, train_step.make_multi_step):
+        assert callable(make(model, mesh=mesh))
 
 
 def test_cuda_wrappers_never_fall_back(monkeypatch):
@@ -356,9 +369,9 @@ def test_solver_path_raises_without_cuda(monkeypatch, tmp_path):
         Solver(cfg, data=object())
     solver = Solver(cfg, data=object(), device="cpu")
     assert solver.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Solver(cfg, data=object(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="bn_axis"):
+    on_mesh = Solver(cfg, data=object(), mesh=make_mesh("cpu"))
+    assert on_mesh.device.type == "cpu" and on_mesh.mesh.size == 1
+    with pytest.raises(ValueError, match="bn_axis"):
         Solver(cfg.replace(bn_axis="dp"), data=object(), device="cpu")
     blocked = Solver(cfg.replace(steps_per_dispatch=2, device_side_augs=True),
                      data=object(), device="cpu")

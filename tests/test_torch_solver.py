@@ -52,9 +52,12 @@ from dis_yolo_tpu_torch.train import train_step as ts
 from dis_yolo_tpu_torch.train.solver import Solver
 from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
 from tests.test_torch_model import as_numpy_tree, random_variables
+from tests.test_torch_eval import jax_numpy_fill  # noqa: F401
 from tests.test_torch_sweep import _between_scores, _instances
 
 cv2 = pytest.importorskip("cv2")
+# the JAX Evaluator's GT masks from its numpy fill (tests/test_torch_eval.py)
+pytestmark = pytest.mark.usefixtures("jax_numpy_fill")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,7 +71,7 @@ def _few_torch_threads():
 
 
 @pytest.fixture(scope="module")
-def split(tmp_path_factory):
+def split(tmp_path_factory, jax_numpy_fill):
     """A train and a val split from the JAX package's synthetic generator
     and preprocessor (``tests/test_data_pipeline.py``'s recipe)."""
     from dis_yolo_tpu.data.preprocess import build_ground_truth_cache
@@ -286,8 +289,11 @@ def test_cli_train_two_steps_and_refusals(split, out_dir):
     solver = cli.main(argv)
     assert solver.state.step == 2 and solver.device.type == "cpu"
     assert os.path.isdir(os.path.join(out, "checkpoint", "step_00000002"))
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(argv + ["--data-parallel"])
+    # --data-parallel without torch.distributed.run: a mesh of one rank
+    dp_argv = list(argv)
+    dp_argv[dp_argv.index("--save-iter") + 1] = "4"     # no checkpoint
+    solver = cli.main(dp_argv + ["--data-parallel"])
+    assert solver.mesh.size == 1 and solver.state.step == 2
     # the device corpus in blocks of 2 (no checkpoint: save_iter 4)
     corpus_argv = [a if a != out else out + "_corpus" for a in argv]
     corpus_argv[corpus_argv.index("--save-iter") + 1] = "4"

@@ -40,6 +40,7 @@ from dis_yolo_tpu_torch.eval import map_eval, sweep
 from dis_yolo_tpu_torch.models import api
 from dis_yolo_tpu_torch.models.weights import state_dict_from_flax
 from dis_yolo_tpu_torch.ops.decode import decode_all
+from dis_yolo_tpu_torch.parallel.sharding import make_mesh
 from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
 from tests.test_torch_model import as_numpy_tree, random_variables
 
@@ -232,9 +233,16 @@ def test_host_route_predict_fn_and_refusals(split, monkeypatch):
     assert calls == [2, 2, 2]          # no warm-up call; the tail is padded
     assert [d["imname"] for d in got] == names
     assert got[4]["masks"].shape == (4, S, S)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        sweep.run_split(ev.cfg, None, images, names, windows, mesh=object(),
-                        device="cpu")
+    # a one-process mesh (no process group) sweeps the whole split
+    calls.clear()
+    mesh = make_mesh("cpu")
+    on_mesh, _ = sweep.run_split(ev.cfg, None, images, names, windows,
+                                 predict_fn=predict_fn, mesh=mesh)
+    assert calls == [2, 2, 2]
+    assert [d["imname"] for d in on_mesh] == names
+    for a, b in zip(on_mesh, got):
+        assert np.array_equal(a["boxes"], b["boxes"])
+        assert np.array_equal(a["masks"], b["masks"])
     # asked for the card (the default) with none there: every route raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for route in ROUTES:

@@ -17,6 +17,10 @@ from dis_yolo_tpu.utils import visualize as jax_vis
 from dis_yolo_tpu_torch import cli
 from dis_yolo_tpu_torch.data import image_io
 from dis_yolo_tpu_torch.utils import visualize as vis
+from tests.test_torch_eval import jax_numpy_fill  # noqa: F401
+
+# the JAX overlays' masks from its numpy fill (tests/test_torch_eval.py)
+pytestmark = pytest.mark.usefixtures("jax_numpy_fill")
 
 CLASSES = ("crack", "spall", "rebar")
 
