@@ -172,7 +172,17 @@ Phases (any failure exits non-zero before the last line is printed):
   the one-process sweep at a rank's batch (the same images in each
   batch).  (e) ``cli train --data-parallel`` under
   ``torch.distributed.run``, two ranks on this card: 2 steps, a
-  validation and rank 0's checkpoint.
+  validation and rank 0's checkpoint.  (f) Spatial partitioning: after
+  (d), (a)'s two ranks form a 1-D ``sp = 2`` mesh and split the height
+  (``parallel.spatial``) at 576^2, full width: ``spatial_predict`` of
+  one val image in float32 (the one-process keep set row for row,
+  classes equal, boxes and scores within rtol 1e-5) and in bf16 (the
+  kept count within 2), then 3 float32 stage-2 ``spatial_train_step``
+  steps at B=2 (step-1 loss within rel 1e-4 of one process, replicas
+  bit-equal), K1 and K3 launched in each rank; recorded per rank:
+  predict ms, step s, the bytes each rank puts into the halo exchanges
+  and gathers of one predict, and peak device memory beside one
+  process's.
 
   The serving export (after the Solver in phase 3, timed in phase 4):
   the deploy graph exported (``export.export_predict``) at B=1 and at a
@@ -216,8 +226,8 @@ The last lines are the card's ``nvidia-smi`` name and power limit, one
 Each kernel's ``launches`` is the sum over the serving path, the
 training path, the serving graphs' path, the eval path, the Solver's
 path, the device-data path (the ``--device-corpus`` command), the
-data-parallel path (the two gloo ranks' training runs, counted in their
-processes) and the export path (its live predicts here and the loaded
+data-parallel path (the two gloo ranks' training runs and their spatial
+predicts and steps, counted in their processes) and the export path (its live predicts here and the loaded
 artifacts' calls in their process), and ``launches_by_path``
 holds each path's own count (each read from its run, with the counters
 set to 0 just before it).  Only K4 has a single PyTorch call computing
@@ -2351,6 +2361,8 @@ def check_assembly_edges(torch, custom_ops, asm_fn, gen, b, s, k, d):
 DP_GLOBAL_BATCH = 4     # two rows per rank
 DP_STEPS = 3
 DP_SEED = 7
+SP_BATCH = 2            # the spatial step's global batch (dp = 1)
+SP_REPEATS = 5          # timed spatial predicts after the first
 
 
 def parallel_modules():
@@ -2361,7 +2373,7 @@ def parallel_modules():
     from dis_yolo_tpu_torch.eval.sweep import run_split
     from dis_yolo_tpu_torch.models import api
     from dis_yolo_tpu_torch.ops import cuda_assembly, custom_ops
-    from dis_yolo_tpu_torch.parallel import distributed, sharding
+    from dis_yolo_tpu_torch.parallel import distributed, sharding, spatial
     from dis_yolo_tpu_torch.train import train_step as ts
     from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
     from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
@@ -2490,6 +2502,135 @@ def dp_sweep(np, torch, m, mesh, dev, root, thresh, size):
     return out
 
 
+@contextlib.contextmanager
+def counting_exchanges(m, sent):
+    """While it runs, ``sent`` counts the calls of
+    ``parallel.distributed.gather_exact`` (the halo exchanges and the
+    gathers of the raw outputs) and the bytes this rank puts in them (its
+    slot of each all-reduce; the all-reduce moves that times the ranks)."""
+    real = m.distributed.gather_exact
+
+    def count(t, mesh):
+        sent["calls"] += 1
+        sent["bytes"] += t.numel() * t.element_size()
+        return real(t, mesh)
+    m.distributed.gather_exact = count
+    try:
+        yield sent
+    finally:
+        m.distributed.gather_exact = real
+
+
+def peak_reset(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def sp_run(np, torch, m, mesh, dev, root, thresh, size):
+    """The spatial checks' run: predict of the Solver split's first val
+    image (B=1, at the threshold that fills the detection slots) with the
+    seed-7 weights in float32 and in bf16, SP_REPEATS timed calls after
+    the first, then DP_STEPS float32 stage-2 steps at B=SP_BATCH (the
+    first rows of the DP batches) -- through ``parallel.spatial`` on
+    ``mesh`` (a Mesh2D), or in one process (mesh None), their reference.
+    Returns (record, arrays), with K1's and K3's launches over the run."""
+    k1, k3 = m.custom_ops.assemble_masks_batch_cuda, m.cuda_assembly.assemble_bwd_cuda
+    cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size)
+    images, _, windows = m.DefectValData(cfg, "val").get()
+    img, win = images[:1], windows[:1]
+    rec, arrays = {}, {}
+    k1.launches = k3.launches = 0
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        model = m.api.init_model(cfg.replace(compute_dtype=dtype), DP_SEED,
+                                 device=dev)
+        run = (lambda i, w: m.api.predict(model, i, w, thresh, device=dev)) \
+            if mesh is None else m.spatial.spatial_predict(model, mesh, thresh)
+        peak_reset(torch, dev)
+        with counting_exchanges(m, {"calls": 0, "bytes": 0}) as sent:
+            dets, _ = run(img, win)
+        ms = []
+        for _ in range(SP_REPEATS):
+            dp_sync(torch, dev)
+            t0 = time.perf_counter()
+            run(img, win)
+            dp_sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        arrays[f"dets_{tag}"] = dets.cpu().numpy()
+        rec[f"predict_{tag}"] = {"ms": ms, "peak_bytes": peak_bytes(torch, dev),
+                                 "exchanged_per_predict": sent,
+                                 "kept": int((arrays[f"dets_{tag}"][..., 5] > 0).sum())}
+        del model, run
+    model = m.api.init_model(cfg.replace(compute_dtype="float32", locked_layers=()),
+                             DP_SEED, device=dev)
+    state = m.ts.init_train_state(model, device=dev, mesh=mesh)
+    step = m.ts.make_train_step(model, device=dev) if mesh is None \
+        else m.spatial.spatial_train_step(model, mesh)
+    gen = torch.Generator().manual_seed(11)
+    losses, walls = [], []
+    peak_reset(torch, dev)
+    for b in dp_batches(np, m, size):
+        dp_sync(torch, dev)
+        t0 = time.perf_counter()
+        _, metrics = step(state, {k: v[:SP_BATCH] for k, v in b.items()}, gen)
+        losses.append(float(metrics["total_loss"]))   # synchronizes
+        walls.append(time.perf_counter() - t0)
+    rec["step_f32_stage2"] = {"losses": losses, "step_wall_s": walls,
+                              "peak_bytes": peak_bytes(torch, dev),
+                              "digest": state_digest(torch, model, state.opt)}
+    rec["launches"] = {"K1": k1.launches, "K3": k3.launches}
+    del model, state, step
+    return rec, arrays
+
+
+def sp_compare(np, results, ref_rec, ref_arrays):
+    """The sp = 2 ranks against each other and against one process: the
+    float32 predict's keep set row for row (classes equal, boxes and
+    scores within rtol 1e-5, ``tests/test_parallel.py``'s), the bf16
+    kept count within 2, the step-1 loss within rel 1e-4, the replicas
+    bit-equal after DP_STEPS steps, every loss finite, K1 and K3
+    launched in each rank.  Returns the comparison record."""
+    recs = [r["spatial"] for r, _ in results]
+    want = ref_arrays["dets_f32"]
+    for (r, arrays), sp in zip(results, recs):
+        got = arrays["sp:dets_f32"]
+        need(np.array_equal(got[..., 5] > 0, want[..., 5] > 0)
+             and np.array_equal(got[..., 4], want[..., 4])
+             and np.allclose(got[..., :4], want[..., :4], rtol=1e-5, atol=1e-6)
+             and np.allclose(got[..., 5], want[..., 5], rtol=1e-5, atol=1e-7),
+             f"spatial predict f32 rank {r['rank']}: not one process's keep set "
+             f"(kept {sp['predict_f32']['kept']} vs "
+             f"{ref_rec['predict_f32']['kept']}, max |diff| "
+             f"{float(np.abs(got - want).max())})")
+        need(np.array_equal(got, results[0][1]["sp:dets_f32"]),
+             f"spatial predict f32 rank {r['rank']}: differs from rank 0's")
+        need(abs(sp["predict_bf16"]["kept"] - ref_rec["predict_bf16"]["kept"]) <= 2,
+             f"spatial predict bf16 rank {r['rank']}: kept "
+             f"{sp['predict_bf16']['kept']} vs {ref_rec['predict_bf16']['kept']}")
+        need(np.isfinite(sp["step_f32_stage2"]["losses"]).all(),
+             f"spatial step rank {r['rank']}: {sp['step_f32_stage2']['losses']}")
+        need(r["device"] == "cpu" or (sp["launches"]["K1"] > 0
+                                      and sp["launches"]["K3"] > 0),
+             f"spatial rank {r['rank']}: K1/K3 never launched: {sp['launches']}")
+    need(len({sp["step_f32_stage2"]["digest"] for sp in recs}) == 1,
+         "spatial step: the ranks' replicas differ")
+    got, want = (x["step_f32_stage2"]["losses"][0] for x in (recs[0], ref_rec))
+    rel = abs(got - want) / abs(want)
+    need(rel <= 1e-4, f"spatial step: step-1 loss {got} against one "
+         f"process's {want} (rel {rel})")
+    return {"step1_loss_rel": rel,
+            "losses_f32": recs[0]["step_f32_stage2"]["losses"],
+            "losses_one_process_f32": ref_rec["step_f32_stage2"]["losses"],
+            "kept_f32": ref_rec["predict_f32"]["kept"],
+            "kept_bf16": [sp["predict_bf16"]["kept"] for sp in recs]
+            + [ref_rec["predict_bf16"]["kept"]],
+            "one_process": ref_rec, "ranks": recs}
+
+
 def dp_worker(spec_path: str) -> None:
     """``chip_smoke.py --dp-worker SPEC``: one rank of a data-parallel
     run.  Joins the group of ``spec`` (its backend, world size and
@@ -2522,6 +2663,12 @@ def dp_worker(spec_path: str) -> None:
             for route, r in sweep.items():
                 arrays[f"boxes:{route}"] = r.pop("boxes")
             rec["sweep"] = sweep
+            # the same ranks as a 1-D sp mesh: the height split between them
+            sp_mesh = m.sharding.make_mesh_2d(1, mesh.size, spec["device"])
+            rec["spatial"], sp_arrays = sp_run(np, torch, m, sp_mesh, dev,
+                                               spec["root"], spec["threshold"],
+                                               size)
+            arrays.update({f"sp:{k}": v for k, v in sp_arrays.items()})
         np.savez(spec["out"], **arrays)
         rec.update(backend=backend, rank=mesh.rank, world=mesh.size,
                    device=str(dev), card=torch.cuda.get_device_name(dev)
@@ -2700,6 +2847,7 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
     thresh = m.calibrate_threshold(model, images[:2], cfg)
     del model
     ref_sweep = dp_sweep(np, torch, m, None, dev, root, thresh, size)
+    ref_sp, ref_sp_arrays = sp_run(np, torch, m, None, dev, root, thresh, size)
     if dev.type == "cuda":
         rec["nccl_world1"] = dp_world1_nccl(np, torch, m, batches, size)
     print(f"parallel: one process and world-size-1 NCCL done in "
@@ -2731,12 +2879,26 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
                                "one_process_predict_s": w["predict_s"]}
                        for route, w in ref_sweep.items()})
     rec["gloo_2rank_one_card"] = gloo
+    sp = sp_compare(np, results, ref_sp, ref_sp_arrays)
+    rec["spatial_sp2_one_card"] = sp
     launches = {"K1": sum(r[p]["launches"]["K1"] for r in recs
-                          for p in ("f32_stage2", "bf16_default")),
+                          for p in ("f32_stage2", "bf16_default", "spatial")),
                 "K2": 0,
                 "K3": sum(r[p]["launches"]["K3"] for r in recs
-                          for p in ("f32_stage2", "bf16_default")),
+                          for p in ("f32_stage2", "bf16_default", "spatial")),
                 "K4": 0}
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    print(f"parallel: spatial sp=2 on one card: predict ms per rank f32 "
+          f"{[round(med(x['predict_f32']['ms']), 2) for x in sp['ranks']]} bf16 "
+          f"{[round(med(x['predict_bf16']['ms']), 2) for x in sp['ranks']]} (one "
+          f"process {round(med(ref_sp['predict_f32']['ms']), 2)} / "
+          f"{round(med(ref_sp['predict_bf16']['ms']), 2)}); f32 step wall "
+          f"{[round(x, 4) for x in sp['ranks'][0]['step_f32_stage2']['step_wall_s']]} s "
+          f"(one process at B={SP_BATCH}: "
+          f"{[round(x, 4) for x in ref_sp['step_f32_stage2']['step_wall_s']]} s); "
+          f"step-1 loss rel {sp['step1_loss_rel']:.3g}; bf16 predict exchanges "
+          f"{sp['ranks'][0]['predict_bf16']['exchanged_per_predict']}; K1/K3 "
+          f"{[x['launches'] for x in sp['ranks']]}; {smi_line}", flush=True)
     print(f"parallel: gloo 2 ranks on one card: f32 step wall "
           f"{[round(x, 4) for x in recs[0]['f32_stage2']['step_wall_s']]} s, bf16 "
           f"{[round(x, 4) for x in recs[0]['bf16_default']['step_wall_s']]} s "

@@ -24,6 +24,12 @@ decoder's fusion nodes 77/80/83 as ``CommutedConcatConvBN`` with
 backward (as JAX's ``nn.remat(ConvBN)``: not the commuted fusion nodes);
 the parameter names are the same in every variant.
 
+Under ``layers.height_sharded`` (``parallel/spatial.py``) the forward
+runs on this rank's rows of the image height, every conv exchanging its
+halo, and the four raw outputs are gathered whole on every rank of the
+row before they are returned; a ``stop_stage`` cut returns this rank's
+rows.
+
 ``stop_stage`` is a profiling probe, as in the JAX package: the forward
 returns early at a named cut (``STOP_STAGES``: after the stem, the
 128-, 256- and 512-channel stages, the backbone, or the heads: then the
@@ -113,6 +119,8 @@ class DISYolo(nn.Module):
     (m = ``cfg.mask_stride``)
     """
 
+    height_shard = None
+
     def __init__(self, cfg: DISYoloConfig, stop_stage: Optional[str] = None):
         super().__init__()
         if stop_stage is not None and stop_stage not in STOP_STAGES:
@@ -160,8 +168,8 @@ class DISYolo(nn.Module):
 
     @staticmethod
     def _head(y: torch.Tensor, a: int) -> torch.Tensor:
-        b, _, h, w = y.shape
-        y = y.permute(0, 2, 3, 1).reshape(b, h, w, a, -1)
+        b, c, h, w = y.shape
+        y = y.permute(0, 2, 3, 1).reshape(b, h, w, a, c // a)
         return y.to(torch.promote_types(y.dtype, torch.float32))
 
     def forward(self, images: torch.Tensor):
@@ -248,5 +256,8 @@ class DISYolo(nn.Module):
                 sm = c(85)(c(84)(m))
         scoremaps = sm.permute(0, 2, 3, 1).to(
             torch.promote_types(sm.dtype, torch.float32)).contiguous()
-        return (raw_s8.contiguous(), raw_s16.contiguous(),
+        outs = (raw_s8.contiguous(), raw_s16.contiguous(),
                 raw_s32.contiguous(), scoremaps)
+        if self.height_shard is not None:
+            outs = tuple(self.height_shard.gather(o) for o in outs)
+        return outs

@@ -24,7 +24,16 @@ JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
     and ``E[x^2]`` are averaged over the mesh before the variance is
     formed, so every rank normalizes with the global batch's statistics
     and moves its running statistics alike; the backward averages their
-    cotangents the same way (``parallel.distributed.all_reduce_mean``).
+    cotangents the same way (``parallel.distributed.all_reduce_mean``);
+  * height sharding (``parallel/spatial.py``): inside ``height_sharded(
+    model, mesh, image_hw)`` every conv takes the rows its window needs
+    from the ranks that own them (``HeightShard.exchange``), pads with
+    SAME's zeros only at the image's edges (its pads come from the global
+    height), and a train-mode BatchNorm sums ``x``, ``x^2`` and the count
+    over the whole ``dp x sp`` grid before it divides, so ranks with
+    unequal rows weigh by their rows.  A rank without rows convolves
+    ``kernel`` zero rows and keeps none of the output, so its autograd
+    graph, and the collectives of its backward, are the other ranks'.
 
 The serving graphs add ``DeployConv`` (conv + bias + leaky, BN folded
 away) and ``CommutedConcatConvBN`` (the decoder's concat 1x1 run before
@@ -40,7 +49,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dis_yolo_tpu_torch.parallel.distributed import all_reduce_mean
+from dis_yolo_tpu_torch.parallel.distributed import (all_reduce_mean,
+                                                     all_reduce_sum)
+from dis_yolo_tpu_torch.parallel.sharding import HeightShard
 
 BN_DECAY = 0.997                 # Flax's momentum: new = decay*old + ...
 BN_MOMENTUM = 1.0 - BN_DECAY     # nn.BatchNorm2d's convention
@@ -65,24 +76,49 @@ def _same_pad(size: int, kernel: int, stride: int):
     return total // 2, total - total // 2
 
 
-def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int):
-    """Conv2d with Flax 'SAME' padding (asymmetric where XLA's is)."""
+def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int,
+              shard=None):
+    """Conv2d with Flax 'SAME' padding (asymmetric where XLA's is); with
+    a ``shard`` (a ``HeightShard``), on this rank's rows of the height."""
     k = weight.shape[-1]
-    ph = _same_pad(x.shape[2], k, stride)
     pw = _same_pad(x.shape[3], k, stride)
+    if shard is not None:
+        # the pads of the global height: halo rows, zeros only at the
+        # image's edges
+        x = shard.exchange(x, *_same_pad(shard.ranges(x.shape[3])[0], k,
+                                         stride))
+        if x.shape[2] == 0:
+            # F.conv2d refuses an empty height
+            x = torch.cat([x, x.new_zeros(x.shape[:2] + (k, x.shape[3]))], 2)
+            x = F.pad(x, (pw[0], pw[1], 0, 0))
+            return F.conv2d(x, weight, bias, stride)[:, :, :0]
+        ph = (0, 0)
+    else:
+        ph = _same_pad(x.shape[2], k, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]))
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
     return F.conv2d(x, weight, bias, stride, 0)
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None):
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None,
+                     shard=None):
     """Flax ``BatchNorm(use_running_average=False)`` on an NCHW float32
     tensor: normalize with the biased batch statistics, over the mesh's
-    global batch when a ``mesh`` is given (``axis_name``).  Returns (out,
-    mean, var); ``update_running_stats`` moves ``bn``'s statistics."""
-    mean = x.mean((0, 2, 3))
-    sq = (x * x).mean((0, 2, 3))
+    global batch when a ``mesh`` is given (``axis_name``), over the whole
+    ``dp x sp`` grid's rows with a ``shard`` (a ``HeightShard``).
+    Returns (out, mean, var); ``update_running_stats`` moves ``bn``'s
+    statistics."""
+    if shard is not None:
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([x.sum((0, 2, 3)),
+                                         (x * x).sum((0, 2, 3)), count]),
+                              shard.mesh.world)
+        mean, sq = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+    else:
+        mean = x.mean((0, 2, 3))
+        sq = (x * x).mean((0, 2, 3))
     if mesh is not None:
         # Flax pmeans both moments, then forms the variance
         mean, sq = all_reduce_mean(torch.stack([mean, sq]), mesh).unbind(0)
@@ -117,8 +153,11 @@ class ConvBN(nn.Module):
     outside it.
 
     ``bn_mesh`` (None outside ``sync_batch_norm``) is the mesh whose
-    global batch a train-mode forward normalizes over.
+    global batch a train-mode forward normalizes over; ``height_shard``
+    (None outside ``height_sharded``) the row partition it runs on.
     """
+
+    height_shard = None
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, alpha: float = 0.1,
@@ -146,7 +185,7 @@ class ConvBN(nn.Module):
 
     def _conv_bn_act(self, x: torch.Tensor):
         x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
-                      self.stride)
+                      self.stride, self.height_shard)
         return self._bn_act(x)
 
     def _bn_act(self, x: torch.Tensor):
@@ -157,7 +196,8 @@ class ConvBN(nn.Module):
         moments = None
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and not self.lock:
-            x, mean, var = batch_norm_train(x, bn, self.bn_mesh)
+            x, mean, var = batch_norm_train(x, bn, self.bn_mesh,
+                                            self.height_shard)
             moments = (mean, var)
         else:
             x = F.batch_norm(x, bn.running_mean, bn.running_var,
@@ -181,6 +221,26 @@ def sync_batch_norm(model: nn.Module, mesh):
             layer.bn_mesh = None
 
 
+@contextlib.contextmanager
+def height_sharded(model: nn.Module, mesh, image_hw):
+    """While the block runs, every conv block of ``model`` (``ConvBN``,
+    ``CommutedConcatConvBN``, ``DeployConv``, ``ConvBias``) and the model
+    itself run on this rank's rows of images of ``image_hw`` over
+    ``mesh`` (a ``parallel.sharding.Mesh2D``): the convs exchange their
+    halos, train-mode BatchNorm sums over the grid, and the model gathers
+    its raw outputs (``models/dis_yolo.py``).  Yields the
+    ``HeightShard``."""
+    shard = HeightShard(mesh, *image_hw)
+    layers = [m for m in model.modules() if hasattr(m, "height_shard")]
+    for layer in layers:
+        layer.height_shard = shard
+    try:
+        yield shard
+    finally:
+        for layer in layers:
+            layer.height_shard = None
+
+
 class CommutedConcatConvBN(ConvBN):
     """ConvBN 1x1 over ``concat([skip, up2(small)])`` without building the
     concat: the kernel is split by input rows at ``cs`` (the skip's
@@ -197,8 +257,10 @@ class CommutedConcatConvBN(ConvBN):
     def forward(self, skip: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
         k = self.conv.weight.to(self.dtype)
         cs = skip.shape[1]
-        out_s = conv_same(skip.to(self.dtype), k[:, :cs], None, 1)
-        out_u = conv_same(small.to(self.dtype), k[:, cs:], None, 1)
+        out_s = conv_same(skip.to(self.dtype), k[:, :cs], None, 1,
+                          self.height_shard)
+        out_u = conv_same(small.to(self.dtype), k[:, cs:], None, 1,
+                          self.height_shard)
         y, moments = self._bn_act(out_s + upsample2x_nearest(out_u))
         if moments is not None:
             update_running_stats(self.bn, *moments)
@@ -209,6 +271,8 @@ class DeployConv(nn.Module):
     """Inference-only fused block: conv + folded-BN bias + leaky ReLU, all
     in the compute dtype (no BatchNorm, no float32 round trip).  Weights
     from ``models.fold.deploy_variables``."""
+
+    height_shard = None
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, alpha: float = 0.1,
@@ -221,12 +285,15 @@ class DeployConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                      self.conv.bias.to(self.dtype), self.stride)
+                      self.conv.bias.to(self.dtype), self.stride,
+                      self.height_shard)
         return leaky_relu(x, self.alpha)
 
 
 class ConvBias(nn.Module):
     """1x1 head conv with bias, no BN, no activation (layers 59/67/75/82)."""
+
+    height_shard = None
 
     def __init__(self, cin: int, features: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -236,4 +303,4 @@ class ConvBias(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                         self.conv.bias.to(self.dtype), 1)
+                         self.conv.bias.to(self.dtype), 1, self.height_shard)

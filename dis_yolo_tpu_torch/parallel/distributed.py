@@ -20,6 +20,17 @@ A failed NCCL start raises; it never turns into gloo.
 Each process feeds its own rows of the global batch: row r of a global
 batch of B on N processes belongs to process ``r // (B / N)``, so the
 processes' rows concatenated in process order are the global batch.
+
+Spatial partitioning (``parallel/spatial.py``) adds three differentiable
+collectives: ``all_reduce_sum`` (train-mode BatchNorm's moment sums),
+``exchange_rows`` (the halo rows a conv window needs from the ranks that
+own them) and ``all_gather_rows`` (the raw outputs, whole on every rank).
+The last two move their payload bit for bit as int32 words through an
+all-reduce in which each rank fills only its own slot (``gather_exact``):
+gloo takes int32 all-reduces on the CPU and on CUDA (it stages CUDA
+tensors through host memory), NCCL takes them too, and adding zeros to an
+integer is exact whatever the payload's dtype.  A failed collective
+raises; none falls back to another device or to one process.
 """
 
 from __future__ import annotations
@@ -189,3 +200,166 @@ class _AllReduceMean(torch.autograd.Function):
 def all_reduce_mean(x: torch.Tensor, mesh) -> torch.Tensor:
     """Differentiable ``pmean`` over the mesh (``_AllReduceMean``)."""
     return _AllReduceMean.apply(x, mesh)
+
+
+def _sum_(tensor: torch.Tensor, mesh) -> torch.Tensor:
+    """In place: the sum over the mesh (``psum``); a one-rank mesh is the
+    identity."""
+    if mesh.size > 1:
+        dist.all_reduce(tensor, group=mesh.group)
+    return tensor
+
+
+def all_reduce_sum_(tensor: torch.Tensor, mesh) -> torch.Tensor:
+    """``psum`` in place, outside autograd."""
+    with torch.no_grad():
+        return _sum_(tensor, mesh)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``psum`` whose backward is ``psum`` of the cotangent: every rank's
+    outputs depend on the sum, so the sum's cotangent is the sum of the
+    ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _sum_(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_(grad.clone(memory_format=torch.contiguous_format),
+                          ctx.mesh), None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Differentiable ``psum`` over the mesh (``_AllReduceSum``)."""
+    return _AllReduceSum.apply(x, mesh)
+
+
+def gather_exact(t: torch.Tensor, mesh) -> list:
+    """Every rank's ``t`` (the same shape and dtype on every rank), bit for
+    bit, as a list in rank order; the rank's own entry is ``t`` itself.
+    One all-reduce of int32 words in which each rank fills its own slot."""
+    if mesh.size == 1:
+        return [t]
+    nbytes = t.numel() * t.element_size()
+    words = max(1, -(-nbytes // 4))
+    buf = torch.zeros((mesh.size, words), dtype=torch.int32, device=t.device)
+    if nbytes:
+        buf[mesh.rank].view(torch.uint8)[:nbytes].copy_(
+            t.contiguous().reshape(-1).view(torch.uint8))
+    dist.all_reduce(buf, group=mesh.group)
+    out = [buf[q].view(torch.uint8)[:nbytes].view(t.dtype).view(t.shape)
+           for q in range(mesh.size)]
+    out[mesh.rank] = t
+    return out
+
+
+def _owner(ranges, row: int) -> int:
+    for q, (a, b) in enumerate(ranges):
+        if a <= row < b:
+            return q
+    raise ValueError(f"row {row} has no owner in {ranges}")
+
+
+class _ExchangeRows(torch.autograd.Function):
+    """This rank's rows ``[a, b)`` (dim 2 of NCHW) -> rows ``[a - top,
+    b + bot)`` of the global tensor of ``height`` rows, zeros outside it
+    (SAME's padding).  Forward: each rank offers its first and last
+    ``max(top, bot)`` rows; each takes the ones it needs from their owners.
+    Backward: each rank offers the cotangent of its halo rows, and each
+    owner adds the parts that fall in its rows to its own, in rank order.
+    A rank without rows takes and gives nothing, but joins both
+    collectives."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ranges, height, top, bot):
+        ctx.args = (mesh, ranges, top, bot)
+        a, b = ranges[mesh.rank]
+        n_rows, m = b - a, max(top, bot)
+        bsz, ch, _, w = x.shape
+        edge = x.new_zeros((2, bsz, ch, m, w))
+        k = min(m, n_rows)
+        if k:
+            edge[0, :, :, :k] = x[:, :, :k]
+            edge[1, :, :, m - k:] = x[:, :, n_rows - k:]
+        edges = gather_exact(edge, mesh)
+        if not n_rows:
+            return x.new_zeros((bsz, ch, 0, w))
+        zero = x.new_zeros((bsz, ch, 1, w))
+
+        def row(g):
+            if not 0 <= g < height:
+                return zero
+            q = _owner(ranges, g)
+            qa, qb = ranges[q]
+            if g - qa < m:
+                return edges[q][0, :, :, g - qa:g - qa + 1]
+            if qb - g > m:
+                raise ValueError(f"row {g} lies deeper than the halo {m} "
+                                 f"inside rank {q}'s rows {ranges[q]}")
+            return edges[q][1, :, :, m - (qb - g):m - (qb - g) + 1]
+        return torch.cat([row(g) for g in range(a - top, a)] + [x]
+                         + [row(g) for g in range(b, b + bot)], 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, ranges, top, bot = ctx.args
+        a, b = ranges[mesh.rank]
+        n_rows = b - a
+        bsz, ch, _, w = grad.shape
+        halo = grad.new_zeros((top + bot, bsz, ch, w))
+        if n_rows:
+            halo[:top] = grad[:, :, :top].permute(2, 0, 1, 3)
+            halo[top:] = grad[:, :, top + n_rows:].permute(2, 0, 1, 3)
+        halos = gather_exact(halo, mesh)
+        dx = grad[:, :, top:top + n_rows].clone(
+            memory_format=torch.contiguous_format)
+        for q, (qa, qb) in enumerate(ranges):
+            if q == mesh.rank or qa == qb:
+                continue
+            wanted = list(range(qa - top, qa)) + list(range(qb, qb + bot))
+            for j, g in enumerate(wanted):
+                if a <= g < b:
+                    dx[:, :, g - a] += halos[q][j]
+        return dx, None, None, None, None, None
+
+
+def exchange_rows(x: torch.Tensor, mesh, ranges, height: int, top: int,
+                  bot: int) -> torch.Tensor:
+    """Differentiable halo exchange over ``mesh`` (``_ExchangeRows``):
+    ``ranges[q]`` are rank q's rows of the global dim 2 of ``height``
+    rows, contiguous in rank order."""
+    if not (top or bot):
+        return x
+    return _ExchangeRows.apply(x, mesh, ranges, height, top, bot)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """The ranks' rows (dim 1) concatenated in rank order, on every rank.
+    Every rank computes the same loss from the whole tensor, so the
+    backward keeps this rank's slice of its own cotangent: the loss counts
+    once, not once per rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ranges):
+        a, b = ranges[mesh.rank]
+        ctx.rows = (a, b)
+        longest = max(qb - qa for qa, qb in ranges)
+        pad = x.new_zeros((x.shape[0], longest) + tuple(x.shape[2:]))
+        pad[:, :b - a] = x
+        parts = gather_exact(pad, mesh)
+        return torch.cat([p[:, :qb - qa] for p, (qa, qb) in
+                          zip(parts, ranges)], 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.rows
+        return grad[:, a:b].contiguous(), None, None
+
+
+def all_gather_rows(x: torch.Tensor, mesh, ranges) -> torch.Tensor:
+    """Differentiable gather of the ranks' rows of dim 1
+    (``_AllGatherRows``)."""
+    return _AllGatherRows.apply(x, mesh, ranges)

@@ -66,6 +66,15 @@ equal the one-process run on the global batch, which the tests hold.
 ``grad_accum`` splits each rank's rows, as in JAX: microbatch i of the
 step is the i-th microbatch of every rank.
 
+Spatial partitioning (``mesh=`` a ``parallel.sharding.Mesh2D``; JAX's
+``spatial_train_step``, ``parallel/spatial.py``): every rank is given
+the global batch and takes its dp rows; the conv stack runs on its sp
+rows of the height (``layers.height_sharded``) and the tail on the
+gathered raw outputs, whole on every sp rank.  The L2 term's gradient
+is taken on sp rank 0 only, and the packed all-reduce sums over the
+grid and divides by the dp size, the metrics entering from sp rank 0:
+the gradient is the one-process gradient of the global batch.
+
 The step synchronizes with the host in three places, and a block in
 each of its steps: the finite check, the statistics guard and the
 fixpoint NMS's predicates.
@@ -93,10 +102,13 @@ from dis_yolo_tpu_torch.losses.mask_loss import (draw_uniforms,
 from dis_yolo_tpu_torch.losses.yolo_loss import yolo_loss
 from dis_yolo_tpu_torch.models.api import _to_device, resolve_device
 from dis_yolo_tpu_torch.models.dis_yolo import DISYolo
-from dis_yolo_tpu_torch.models.layers import ConvBN, sync_batch_norm
+from dis_yolo_tpu_torch.models.layers import (ConvBN, height_sharded,
+                                              sync_batch_norm)
 from dis_yolo_tpu_torch.ops import nms
 from dis_yolo_tpu_torch.ops.decode import decode_all
-from dis_yolo_tpu_torch.parallel.distributed import all_reduce_mean_
+from dis_yolo_tpu_torch.parallel.distributed import (all_reduce_mean_,
+                                                     all_reduce_sum_)
+from dis_yolo_tpu_torch.parallel.sharding import Mesh2D
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_ERRORS = 100
@@ -153,18 +165,22 @@ def prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def total_loss(model: DISYolo, batch: Dict[str, torch.Tensor],
-               u_prop: torch.Tensor, u_gt: torch.Tensor):
+               u_prop: torch.Tensor, u_gt: torch.Tensor, forward=None,
+               l2_grad: bool = True):
     """(total, metrics) of one batch, the model in train mode.
 
     ``batch`` (the reference 7-tuple): images [B,H,W,3] f32, true_masks
     [B,T,H,W] bool, true_boxes [B,1,1,1,T,5], labels_s8 / labels_s16 /
     labels_s32 [B,h,w,A,5+C], windows [B,4].  ``u_prop`` [B,D] and
     ``u_gt`` [B,T] are the mask loss's ROI-pick uniforms.  The BN running
-    statistics of unlocked layers move (in place).
+    statistics of unlocked layers move (in place).  ``forward`` maps the
+    images to the raw outputs (default: the model); ``l2_grad=False``
+    takes the L2 term's value without its gradient (the spatial step's
+    ranks but one: every rank computes the same L2 of the same weights).
     """
     cfg = model.cfg
     model.train()
-    raw_s8, raw_s16, raw_s32, scoremaps = model(batch["images"])
+    raw_s8, raw_s16, raw_s32, scoremaps = (forward or model)(batch["images"])
     preds = decode_all([raw_s8, raw_s16, raw_s32], cfg)
     losses = yolo_loss(preds, batch["true_boxes"],
                        [batch["labels_s8"], batch["labels_s16"],
@@ -184,11 +200,12 @@ def total_loss(model: DISYolo, batch: Dict[str, torch.Tensor],
     m_loss = per_image.mean()
 
     l2_mask = l2_params_mask([n for n, _ in model.named_parameters()], cfg)
-    l2 = torch.zeros((), dtype=torch.float32, device=scoremaps.device)
-    for name, p in model.named_parameters():
-        if l2_mask[name]:
-            l2 = l2 + torch.sum(torch.square(p))
-    l2 = 0.5 * cfg.l2_scale * l2
+    with torch.set_grad_enabled(l2_grad and torch.is_grad_enabled()):
+        l2 = torch.zeros((), dtype=torch.float32, device=scoremaps.device)
+        for name, p in model.named_parameters():
+            if l2_mask[name]:
+                l2 = l2 + torch.sum(torch.square(p))
+        l2 = 0.5 * cfg.l2_scale * l2
 
     total = (losses["conf_loss"] + losses["class_loss"] + losses["coord_loss"]
              + m_loss + l2)
@@ -199,9 +216,11 @@ def total_loss(model: DISYolo, batch: Dict[str, torch.Tensor],
 
 def grads_and_aux(model: DISYolo, batch: Dict[str, torch.Tensor],
                   u_prop: torch.Tensor, u_gt: torch.Tensor,
-                  params: Sequence[torch.Tensor]):
+                  params: Sequence[torch.Tensor], forward=None,
+                  l2_grad: bool = True):
     """(gradients of ``params``, detached metrics) of one batch, in
-    ``cfg.grad_accum`` equal microbatches when it is > 1.
+    ``cfg.grad_accum`` equal microbatches when it is > 1 (``forward`` and
+    ``l2_grad`` as ``total_loss``'s).
 
     Each microbatch is a train-mode forward and backward: the BN running
     statistics move once per microbatch, in order.  Gradients and
@@ -221,7 +240,8 @@ def grads_and_aux(model: DISYolo, batch: Dict[str, torch.Tensor],
         part = slice(i * micro, (i + 1) * micro)
         total, metrics = total_loss(model, {k: v[part]
                                             for k, v in batch.items()},
-                                    u_prop[part], u_gt[part])
+                                    u_prop[part], u_gt[part], forward,
+                                    l2_grad)
         grads = torch.autograd.grad(total, params) if params else ()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if gsum is None:
@@ -324,7 +344,11 @@ class TrainState:
 def _check_model(model: DISYolo, device, mesh=None) -> torch.device:
     """The device a train entry point runs on: ``mesh.device`` with a
     mesh (``device``, when given too, must be of its type)."""
-    model.cfg.check_trainable(mesh)
+    spatial = isinstance(mesh, Mesh2D)
+    # the spatial step normalizes over the whole grid: no bn_axis
+    model.cfg.check_trainable(None if spatial else mesh)
+    if spatial and model.cfg.remat:
+        raise ValueError("remat is not ported to the spatial step")
     if mesh is not None:
         if device is not None and torch.device(device).type \
                 != mesh.device.type:
@@ -349,12 +373,25 @@ def init_train_state(model: DISYolo, device=None, mesh=None) -> TrainState:
 def _mean_over_mesh(grads, metrics: Dict[str, torch.Tensor], mesh):
     """The one collective of the step: every gradient and the metrics,
     packed into one flat tensor (the metrics cast to the gradients'
-    dtype, as JAX packs them), averaged over the mesh, unpacked."""
+    dtype, as JAX packs them), averaged over the mesh, unpacked.
+
+    On a ``Mesh2D`` the sum runs over the whole grid and is divided by
+    the dp size: the gradients summed over sp (each sp rank's part of
+    the image) and averaged over dp.  The metrics, equal on a row's sp
+    ranks, enter from its sp rank 0 only."""
     dtype = grads[0].dtype
     names = list(metrics)
-    packed = torch.cat([g.reshape(-1) for g in grads]
-                       + [torch.stack([metrics[k].to(dtype) for k in names])])
-    all_reduce_mean_(packed, mesh)
+    stacked = torch.stack([metrics[k].to(dtype) for k in names])
+    if isinstance(mesh, Mesh2D) and mesh.sp.rank:
+        stacked = torch.zeros_like(stacked)
+    packed = torch.cat([g.reshape(-1) for g in grads] + [stacked])
+    if isinstance(mesh, Mesh2D):
+        all_reduce_sum_(packed, mesh.world)
+        if mesh.dp.size > 1:
+            packed.div_(torch.full((), mesh.dp.size, dtype=dtype,
+                                   device=packed.device))
+    else:
+        all_reduce_mean_(packed, mesh)
     out, at = [], 0
     for g in grads:
         out.append(packed[at:at + g.numel()].view_as(g))
@@ -380,8 +417,18 @@ def make_train_step(model: DISYolo, device=None, mesh=None):
     With a ``mesh`` (the module docstring): ``batch`` holds this rank's
     rows, the step runs on ``mesh.device``, and ``metrics`` are the
     global batch's, equal on every rank.
+
+    With a ``Mesh2D`` it is the ``dp x sp`` spatial step
+    (``parallel/spatial.py``): ``batch`` is the global batch on every
+    rank; the rank takes its dp rows (augmented whole, with the global
+    batch's draws), and the conv stack runs on its sp rows of the height
+    (``layers.height_sharded``) while the tail after the gathered raw
+    outputs (decode, YOLO loss, proposals, mask loss) runs whole on every
+    sp rank.  One packed all-reduce over the grid gives every rank the
+    global batch's gradients and metrics.
     """
     dev = _check_model(model, device, mesh)
+    spatial = isinstance(mesh, Mesh2D)
     cfg = model.cfg
     mask = trainable_mask([n for n, _ in model.named_parameters()], cfg)
     params = dict(model.named_parameters())
@@ -404,25 +451,36 @@ def make_train_step(model: DISYolo, device=None, mesh=None):
         batch = prepare_batch({k: _to_device(v, dev) for k, v in batch.items()})
         bsz = batch["images"].shape[0]
         # the draws are the global batch's; this rank's are its rows
-        world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
-        rows = slice(rank * bsz, (rank + 1) * bsz)
+        if spatial:
+            draw_b, rows = bsz, mesh.dp.rows(bsz)
+            batch = {k: v[rows] for k, v in batch.items()}
+        else:
+            world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+            draw_b, rows = world * bsz, slice(rank * bsz, (rank + 1) * bsz)
         if cfg.device_side_augs:
             if aug_generator is None or aug_generator.device.type != dev.type:
                 raise ValueError("device_side_augs needs aug_generator, a "
                                  f"torch.Generator on {dev}")
             flips, photo = cfg.flipped, cfg.blur_noise_light
-            draws = draw_augment(aug_generator, world * bsz, cfg.image_size,
+            draws = draw_augment(aug_generator, draw_b, cfg.image_size,
                                  flips, photo)
             batch = augment_batch(batch, {k: v[rows] for k, v in draws.items()},
                                   cfg.image_size, flips, photo)
         n_gt = batch["true_boxes"].shape[-2]
-        u_prop, u_gt = draw_uniforms(generator, world * bsz,
+        u_prop, u_gt = draw_uniforms(generator, draw_b,
                                      cfg.max_detection, n_gt, dev)
         old = [t.clone() for t in unlocked_stats] \
             if cfg.skip_nonfinite_updates else None
-        with sync_batch_norm(model, mesh):
-            grads, metrics = grads_and_aux(model, batch, u_prop[rows],
-                                           u_gt[rows], wanted_params)
+        if spatial:
+            with height_sharded(model, mesh, batch["images"].shape[1:3]) as sh:
+                mine = sh.image_rows()
+                grads, metrics = grads_and_aux(
+                    model, batch, u_prop[rows], u_gt[rows], wanted_params,
+                    lambda images: model(images[:, mine]), mesh.sp.rank == 0)
+        else:
+            with sync_batch_norm(model, mesh):
+                grads, metrics = grads_and_aux(model, batch, u_prop[rows],
+                                               u_gt[rows], wanted_params)
         if mesh is not None:
             grads, metrics = _mean_over_mesh(grads, metrics, mesh)
         with torch.no_grad():
@@ -436,6 +494,14 @@ def make_train_step(model: DISYolo, device=None, mesh=None):
         return state, metrics
 
     return step
+
+
+def _not_spatial(mesh):
+    """``mesh``; a ``Mesh2D`` raises: K-step blocks are not spatial."""
+    if isinstance(mesh, Mesh2D):
+        raise ValueError("K-step blocks run on a data-parallel Mesh, not on "
+                         "a dp x sp Mesh2D")
+    return mesh
 
 
 def _stacked_steps(step, state, batches, generator, aug_generator):
@@ -464,7 +530,7 @@ def make_multi_step(model: DISYolo, device=None, mesh=None):
     equals K steps seed for seed; each metric comes back stacked [K] on
     the device.  With a ``mesh`` the block holds this rank's rows of
     each step (dim 1) and the steps are the mesh step."""
-    dev = _check_model(model, device, mesh)
+    dev = _check_model(model, device, _not_spatial(mesh))
     step = make_train_step(model, device=dev, mesh=mesh)
 
     def multi(state: TrainState, block, generator: torch.Generator,
@@ -486,7 +552,7 @@ def make_corpus_multi_step(model: DISYolo, device=None, mesh=None):
     every rank holds the whole corpus and ``params`` holds this rank's
     rows of each step's decisions (dim 1): the rank assembles its own
     rows, and the steps are the mesh step."""
-    dev = _check_model(model, device, mesh)
+    dev = _check_model(model, device, _not_spatial(mesh))
     if not model.cfg.device_side_augs:
         raise ValueError("the corpus step needs cfg.device_side_augs=True")
     step = make_train_step(model, device=dev, mesh=mesh)

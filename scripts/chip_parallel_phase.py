@@ -7,8 +7,9 @@
 On the card it builds the kernels, writes the Solver's P6 split under
 ``build/`` and runs ``chip_smoke.parallel_phase`` at 576^2 (two gloo ranks
 on the card against one process, world size 1 over NCCL, two NCCL ranks
-when there are two cards, the DP sweep, ``cli train --data-parallel``
-under ``torch.distributed.run``).  With ``--cpu`` it runs the same phase
+when there are two cards, the DP sweep, the gloo ranks' spatial
+predicts and steps at sp = 2, ``cli train --data-parallel`` under
+``torch.distributed.run``).  With ``--cpu`` it runs the same phase
 on CPU ranks at 64 px, without the NCCL parts: a rehearsal of its
 control flow, not a measurement.
 """

@@ -17,7 +17,7 @@ from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_bwd_cuda,
                                                   extract_planes_cuda)
 from dis_yolo_tpu_torch.ops.custom_ops import (assemble_masks_batch_cuda,
                                                nms_cuda)
-from dis_yolo_tpu_torch.parallel.sharding import make_mesh
+from dis_yolo_tpu_torch.parallel.sharding import make_mesh, make_mesh_2d
 from dis_yolo_tpu_torch.train import train_step
 
 
@@ -66,12 +66,14 @@ def test_port_imports_no_jax():
                    "utils/profiling.py", "utils/runtime.py", "cli.py",
                    # the serving export
                    "export.py", "ops/custom_ops.py", "utils/visualize.py",
-                   # the data-parallel layer
+                   # the data-parallel layer and spatial partitioning
                    "parallel/__init__.py", "parallel/distributed.py",
-                   "parallel/sharding.py"):
+                   "parallel/sharding.py", "parallel/spatial.py"):
         assert port / module in files, module
-    # chip_smoke's worker processes run from the same file
-    assert "--dp-worker" in (ROOT / "chip_smoke.py").read_text()
+    # chip_smoke's worker processes (their spatial checks too) run from
+    # the same file
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert "--dp-worker" in smoke and "def sp_run(" in smoke
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -124,7 +126,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: train_step.make_train_step(model),
                  lambda: train_step.make_multi_step(model),
                  lambda: train_step.make_corpus_multi_step(aug_model),
-                 lambda: device_corpus.upload_corpus(host)):
+                 lambda: device_corpus.upload_corpus(host),
+                 lambda: make_mesh_2d(1, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert device_corpus.upload_corpus(host, "cpu")["sizes"].device.type \

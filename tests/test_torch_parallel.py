@@ -375,6 +375,9 @@ def _worker(spec_path: str, rank: int) -> None:
             "mu": {k: _digest(v) for k, v in state.opt.mu.items()},
             "nu": {k: _digest(v) for k, v in state.opt.nu.items()},
             "count": state.opt.count, "step": state.step}
+        # (c') three bf16 steps of the default config
+        out["bf16_losses"], out["bf16_params1"] = _bf16_losses(
+            spec["batches"], mesh)
         _mark(t0, '# (d)')
         # (d) grad_accum, a K=2 block, a K=2 corpus block
         out["knobs"] = {case: _knob_case(spec, case, mesh)
@@ -443,8 +446,9 @@ def _ckpt_case(spec, mesh):
 # --------------------------------------------------------- the spawn
 
 class _Spawn:
-    """The two ranks started by ``dp_run``; ``result()`` waits for them
-    (once) and returns their outputs."""
+    """The ranks started by ``dp_run`` (``tests/test_torch_spatial.py``'s
+    too); ``result()`` waits for them (once) and returns their outputs
+    by rank."""
 
     def __init__(self, spec, procs, logs):
         self.spec, self.procs, self.logs = spec, procs, logs
@@ -463,7 +467,8 @@ class _Spawn:
                 assert p.returncode == 0 and f"worker {rank} OK" in log, \
                     f"rank {rank} failed (rc {p.returncode}):\n{log[-4000:]}"
             self._outs = [torch.load(self.spec["out"].format(r),
-                                     weights_only=False) for r in (0, 1)]
+                                     weights_only=False)
+                          for r in range(len(self.procs))]
             print(Path(self.logs[0]).read_text())     # the parts' times
         return self._outs
 
@@ -571,7 +576,8 @@ def refs(dp_run):
         knobs={case: _knob_case(spec, case)
                for case in ("grad_accum", "block", "corpus")},
         serving=_one_process_serving(spec),
-        jax_mesh_step=_jax_mesh_step(spec))
+        jax_mesh_step=_jax_mesh_step(spec)[:2],
+        bf16_drift=_bf16_drift(spec))
 
 
 def close(got, want, tol, msg=""):
@@ -651,28 +657,72 @@ def test_plans_and_one_process_mesh(dp_run):
     DISYoloConfig(**kw, bn_axis="dp").check_trainable(mesh)
 
 
-def _jax_mesh_step(spec):
-    """JAX's mesh step on 2 of the 8 virtual devices, float32, nothing
-    locked, from the port's seed weights: (metrics, summarized
-    parameters after the step)."""
-    jcfg = JaxConfig(**F32_KW)
+def _jax_mesh_step(spec, kw=F32_KW, steps=1, devices=2):
+    """JAX's train step on ``devices`` of the 8 virtual devices (1: the
+    one-device step) from the port's seed weights at ``kw``, ``steps``
+    steps on the spec's batches, the keys PRNGKey(7), (8), ...:
+    (metrics of the first step, summarized parameters after it, the
+    total loss of every step)."""
+    jcfg = JaxConfig(**kw)
     model = jax_api.create_model(jcfg)
-    v = flax_from_state_dict(_model(F32_KW, torch.float32).state_dict())
+    v = flax_from_state_dict(_model(kw, torch.float32).state_dict())
     tx = jax_ts.make_optimizer(v["params"], jcfg)
     st = jax_ts.TrainState(v["params"], v["batch_stats"],
                            tx.init(v["params"]), jnp.asarray(0))
-    mesh = JaxMesh(np.asarray(jax.devices()[:2]), ("dp",))
-    new, want = jax_ts.make_jitted_train_step(model, tx, mesh=mesh)(
-        jax_sharding.replicate(mesh, st),
-        jax_sharding.shard_batch(mesh, spec["batches"][0]),
-        jax.random.PRNGKey(7))
-    want_p = _summary({k: torch.from_numpy(np.asarray(t)) for k, t in
-                       state_dict_from_flax(jax.tree.map(np.asarray, {
-                           "params": new.params,
-                           "batch_stats": new.batch_stats})).items()
-                       if not k.endswith(("running_mean", "running_var",
-                                          "num_batches_tracked"))})
-    return {k: float(v) for k, v in want.items()}, want_p
+    mesh = JaxMesh(np.asarray(jax.devices()[:devices]), ("dp",)) \
+        if devices > 1 else None
+    step = jax_ts.make_jitted_train_step(model, tx, mesh=mesh)
+    if mesh is not None:
+        st = jax_sharding.replicate(mesh, st)
+    losses = []
+    for i, batch in enumerate(spec["batches"][:steps]):
+        st, metrics = step(st, batch if mesh is None else
+                           jax_sharding.shard_batch(mesh, batch),
+                           jax.random.PRNGKey(7 + i))
+        losses.append(float(metrics["total_loss"]))
+        if i == 0:
+            want = {k: float(v) for k, v in metrics.items()}
+            want_p = _summary({k: torch.from_numpy(np.asarray(t)) for k, t in
+                               state_dict_from_flax(jax.tree.map(np.asarray, {
+                                   "params": st.params,
+                                   "batch_stats": st.batch_stats})).items()
+                               if not k.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked"))})
+    return want, want_p, losses
+
+
+def _bf16_losses(batches, mesh=None):
+    """The port's total loss over three steps of the bf16 default config
+    (stage 1), one step per batch, on the mesh (this rank's rows) or in
+    one process: (the losses, summarized parameters after step 1)."""
+    model = _model(KW, torch.float32)
+    state = ts.init_train_state(model, device="cpu", mesh=mesh)
+    step = ts.make_train_step(model, device="cpu", mesh=mesh)
+    gen = torch.Generator().manual_seed(2)
+    losses = []
+    for b in batches:
+        losses.append(float(step(state, _rows(b, mesh), gen)[1]["total_loss"]))
+        if len(losses) == 1:
+            params1 = _summary(dict(model.named_parameters()))
+    return losses, params1
+
+
+def _bf16_drift(spec):
+    """Step 0's references: the port in one process, JAX on one device
+    and on 2 of the 8 virtual devices, three bf16 steps each: the losses
+    and the parameters after step 1."""
+    (jax_one_p, jax_one), (jax_mesh_p, jax_mesh) = (
+        _jax_mesh_step(spec, KW, 3, n)[1:] for n in (1, 2))
+    port_one, port_one_p = _bf16_losses(spec["batches"])
+    return dict(port_one=port_one, port_one_p=port_one_p, jax_one=jax_one,
+                jax_one_p=jax_one_p, jax_mesh=jax_mesh, jax_mesh_p=jax_mesh_p)
+
+
+def _n_apart(got, want, tol=1e-6):
+    """Sampled parameter values of two summaries further apart than
+    ``tol``."""
+    return sum(int((np.abs(got[k][0] - w) > tol).sum())
+               for k, (w, _) in want.items())
 
 
 def test_dp_step_float32_matches_jax_mesh_step(dp_run, refs):
@@ -691,6 +741,42 @@ def test_dp_step_float32_matches_jax_mesh_step(dp_run, refs):
         for key, (w, _) in want_p.items():
             np.testing.assert_allclose(got_p[key][0], w, rtol=5e-2,
                                        atol=3e-3, err_msg=key)
+
+
+def test_bf16_dp_drift_no_worse_than_jax(dp_run, refs):
+    """(c') The bf16 default config (stage 1), three steps at global
+    batch 4: the port's two ranks against its one process, beside JAX's
+    mesh step on 2 virtual devices against its one device, on the same
+    batches and seed weights.  Both packages drift from one process by
+    rounding (bf16 convs on each device's rows, BN moments averaged in
+    another order), and the port's drift is a fault only where it drifts
+    and JAX does not:
+      * step 1, from the same state: the port's relative loss gap is at
+        most 2x JAX's + 1e-3;
+      * after step 1: the port's parameters are no further from its one
+        process than JAX's from its one device (sampled values more than
+        1e-6 apart: Adam's first update is lr * sign(g) where |g| >> 1e-8,
+        so every gradient whose sign the rounding flips moves by 2 lr);
+      * steps 1-3: the port's largest gap is at most 2x JAX's largest +
+        1e-3.  From step 2 on the states differ by those flips, and each
+        step's gap swings with them (the wh loss through exp): gap by gap
+        the port is ahead at steps 1 and 3 and behind at step 2, so the
+        steps are held together."""
+    ref = refs["bf16_drift"]
+    gap = lambda got, want: [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    jax_gap = gap(ref["jax_mesh"], ref["jax_one"])
+    jax_apart = _n_apart(ref["jax_mesh_p"], ref["jax_one_p"])
+    for r, out in enumerate(dp_run.result()):
+        port_gap = gap(out["bf16_losses"], ref["port_one"])
+        port_apart = _n_apart(out["bf16_params1"], ref["port_one_p"])
+        print(f"rank {r}: loss gaps port {port_gap}, JAX {jax_gap}; "
+              f"sampled parameters apart after step 1: port {port_apart}, "
+              f"JAX {jax_apart}")
+        assert len(port_gap) == len(jax_gap) == 3
+        assert port_gap[0] <= 2 * jax_gap[0] + 1e-3, (r, port_gap, jax_gap)
+        assert port_apart <= jax_apart, (r, port_apart, jax_apart)
+        assert max(port_gap) <= 2 * max(jax_gap) + 1e-3, (r, port_gap,
+                                                          jax_gap)
 
 
 def test_placement_across_ranks(dp_run):
