@@ -182,7 +182,17 @@ Phases (any failure exits non-zero before the last line is printed):
   bit-equal), K1 and K3 launched in each rank; recorded per rank:
   predict ms, step s, the bytes each rank puts into the halo exchanges
   and gathers of one predict, and peak device memory beside one
-  process's.
+  process's.  Also the default int8 graph (layers 5-85, absmax
+  calibration in one process, its own threshold): its spatial predict
+  (the kept count within 2 of one process, the top 5 scores within rtol
+  1e-2, K1 launched in each rank; ms and bytes per rank; ``--out`` key
+  ``parallel.int8_predict``) and the int32 accumulator rows of its
+  layers 5 and 7 on each rank, given one process's input, equal to one
+  process's to the bit; and the float32 stage-2 steps again with
+  ``remat``, both runs under deterministic algorithms: every metric and
+  the state equal to the plain spatial step's to the bit, the peak per
+  rank below it, K3 launched in each rank (``parallel.remat_step``:
+  s per step and peak memory per rank, with and without).
 
   The serving export (after the Solver in phase 3, timed in phase 4):
   the deploy graph exported (``export.export_predict``) at B=1 and at a
@@ -2363,6 +2373,9 @@ DP_STEPS = 3
 DP_SEED = 7
 SP_BATCH = 2            # the spatial step's global batch (dp = 1)
 SP_REPEATS = 5          # timed spatial predicts after the first
+# the int8 graph's accumulator probes: its first quantized 3x3 layer
+# (stride 2, a halo row below) and its first of stride 1 (one each side)
+SP_INT8_PROBES = ("convolutional5", "convolutional7")
 
 
 def parallel_modules():
@@ -2371,7 +2384,7 @@ def parallel_modules():
     from dis_yolo_tpu_torch.data.val_data import DefectValData
     from dis_yolo_tpu_torch.eval.map_eval import Evaluator
     from dis_yolo_tpu_torch.eval.sweep import run_split
-    from dis_yolo_tpu_torch.models import api
+    from dis_yolo_tpu_torch.models import api, fold, layers, quant
     from dis_yolo_tpu_torch.ops import cuda_assembly, custom_ops
     from dis_yolo_tpu_torch.parallel import distributed, sharding, spatial
     from dis_yolo_tpu_torch.train import train_step as ts
@@ -2531,14 +2544,139 @@ def peak_bytes(torch, dev):
     return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
 
-def sp_run(np, torch, m, mesh, dev, root, thresh, size):
+def sp_timed(torch, m, dev, run, img, win):
+    """The first call of ``run(img, win)`` with its exchanges counted
+    (``counting_exchanges``) and the peak memory over it, then
+    SP_REPEATS timed calls: (detections, record)."""
+    peak_reset(torch, dev)
+    with counting_exchanges(m, {"calls": 0, "bytes": 0}) as sent:
+        dets, _ = run(img, win)
+    ms = []
+    for _ in range(SP_REPEATS):
+        dp_sync(torch, dev)
+        t0 = time.perf_counter()
+        run(img, win)
+        dp_sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    dets = dets.cpu().numpy()
+    return dets, {"ms": ms, "peak_bytes": peak_bytes(torch, dev),
+                  "exchanged_per_predict": sent,
+                  "kept": int((dets[..., 5] > 0).sum())}
+
+
+def sp_int8(np, torch, m, mesh, dev, root, cfg, img, win, images, int8):
+    """The default int8 graph (layers 5-85, absmax calibration, as
+    ``build_graphs``) on the seed-7 weights: predict of ``img`` timed as
+    ``sp_timed``, and each SP_INT8_PROBES layer's int32 accumulator.  In
+    one process (mesh None) it calibrates on ``img``, takes the int8
+    graph's threshold (``calibrate_threshold`` on ``images``) and saves
+    each probe layer's input, as predict gave it, under ``root``; a rank
+    takes ``int8`` (that calibration, threshold and file) and runs each
+    probe layer, height-sharded, on its rows of the saved input.
+    Returns (record, arrays, the ``int8`` spec for the ranks)."""
+    k1 = m.custom_ops.assemble_masks_batch_cuda
+    qcfg = cfg.replace(quant=True)
+    dsd = m.fold.deploy_variables(
+        m.api.init_model(cfg, DP_SEED, device=dev).state_dict())
+    if int8 is None:
+        absmax = m.quant.calibrate_deploy(m.api.create_model(
+            cfg.replace(quant=True, quant_calibrate=True), device=dev), dsd, img)
+    else:
+        absmax = int8["absmax"]
+    model = m.api.create_model(qcfg, device=dev)
+    model.load_state_dict(m.quant.quantize_deploy(dsd, absmax))
+    del dsd
+    if int8 is None:
+        thresh = m.calibrate_threshold(model, images[:2], qcfg)
+        inputs = {}
+        hooks = [getattr(model, name).register_forward_pre_hook(
+            lambda mod, args, _n=name: inputs.setdefault(_n, args[0].detach()))
+            for name in SP_INT8_PROBES]
+        m.api.predict(model, img, win, thresh, device=dev)
+        for h in hooks:
+            h.remove()
+        probe = os.path.join(root, "sp_int8_probe.pt")
+        torch.save({k: v.cpu() for k, v in inputs.items()}, probe)
+        int8 = {"absmax": absmax, "threshold": thresh, "probe": probe}
+    thresh = int8["threshold"]
+    run = (lambda i, w: m.api.predict(model, i, w, thresh, device=dev)) \
+        if mesh is None else m.spatial.spatial_predict(model, mesh, thresh)
+    k1_before = k1.launches
+    dets, rec = sp_timed(torch, m, dev, run, img, win)
+    rec.update(launches_K1=k1.launches - k1_before, threshold=thresh)
+    arrays = {"dets_int8": dets}
+    saved = torch.load(int8["probe"])
+    with torch.no_grad():
+        for name in SP_INT8_PROBES:
+            layer, x = getattr(model, name), saved[name].to(dev)
+            if mesh is None:
+                acc, rows = layer.accumulate(x), None
+            else:
+                with m.layers.height_sharded(model, mesh, (cfg.image_size,) * 2) as sh:
+                    a, b = sh.ranges(x.shape[3])[1][mesh.sp.rank]
+                    acc = layer.accumulate(x[:, :, a:b])
+                    rows = sh.ranges(acc.shape[2])[1][mesh.sp.rank]
+            arrays[f"probe_acc:{name}"] = acc.cpu().numpy()
+            if rows is not None:
+                arrays[f"probe_rows:{name}"] = np.asarray(rows)
+    del model, run, saved
+    return rec, arrays, int8
+
+
+def sp_steps(np, torch, m, mesh, dev, cfg, size):
+    """DP_STEPS float32 stage-2 steps at B=SP_BATCH (the first rows of the
+    DP batches) without ``remat`` and then with it, each from the seed-7
+    weights under deterministic algorithms (so the two can be equal to
+    the bit): per run every step's metrics and wall, the peak memory
+    (also above what was allocated before the model), the state's digest
+    and K3's launches."""
+    k3 = m.cuda_assembly.assemble_bwd_cuda
+    batches = [{k: v[:SP_BATCH] for k, v in b.items()}
+               for b in dp_batches(np, m, size)]
+    out = {}
+    for remat in (False, True):
+        dp_sync(torch, dev)
+        before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        model = m.api.init_model(cfg.replace(compute_dtype="float32",
+                                             locked_layers=(), remat=remat),
+                                 DP_SEED, device=dev)
+        state = m.ts.init_train_state(model, device=dev, mesh=mesh)
+        step = m.ts.make_train_step(model, device=dev) if mesh is None \
+            else m.spatial.spatial_train_step(model, mesh)
+        gen = torch.Generator().manual_seed(11)
+        rows, walls = [], []
+        k3_before = k3.launches
+        peak_reset(torch, dev)
+        with deterministic(torch):
+            for b in batches:
+                dp_sync(torch, dev)
+                t0 = time.perf_counter()
+                state, metrics = step(state, b, gen)
+                rows.append({k: float(v) for k, v in metrics.items()})  # syncs
+                walls.append(time.perf_counter() - t0)
+        peak = peak_bytes(torch, dev)
+        out["step_remat" if remat else "step_f32_stage2"] = {
+            "losses": [r["total_loss"] for r in rows], "metrics": rows,
+            "step_wall_s": walls, "peak_bytes": peak,
+            "peak_above_before_bytes": None if peak is None else peak - before,
+            "digest": state_digest(torch, model, state.opt),
+            "launches_K3": k3.launches - k3_before}
+        del model, state, step, metrics
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sp_run(np, torch, m, mesh, dev, root, thresh, size, int8=None):
     """The spatial checks' run: predict of the Solver split's first val
     image (B=1, at the threshold that fills the detection slots) with the
-    seed-7 weights in float32 and in bf16, SP_REPEATS timed calls after
-    the first, then DP_STEPS float32 stage-2 steps at B=SP_BATCH (the
-    first rows of the DP batches) -- through ``parallel.spatial`` on
-    ``mesh`` (a Mesh2D), or in one process (mesh None), their reference.
-    Returns (record, arrays), with K1's and K3's launches over the run."""
+    seed-7 weights in float32, in bf16 and in the int8 graph
+    (``sp_int8``), SP_REPEATS timed calls after the first, then the
+    float32 stage-2 steps with and without ``remat`` (``sp_steps``) --
+    through ``parallel.spatial`` on ``mesh`` (a Mesh2D), or in one
+    process (mesh None), their reference.  Returns (record, arrays, the
+    int8 spec for the ranks), with K1's and K3's launches over the
+    run."""
     k1, k3 = m.custom_ops.assemble_masks_batch_cuda, m.cuda_assembly.assemble_bwd_cuda
     cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size)
     images, _, windows = m.DefectValData(cfg, "val").get()
@@ -2550,41 +2688,15 @@ def sp_run(np, torch, m, mesh, dev, root, thresh, size):
                                  device=dev)
         run = (lambda i, w: m.api.predict(model, i, w, thresh, device=dev)) \
             if mesh is None else m.spatial.spatial_predict(model, mesh, thresh)
-        peak_reset(torch, dev)
-        with counting_exchanges(m, {"calls": 0, "bytes": 0}) as sent:
-            dets, _ = run(img, win)
-        ms = []
-        for _ in range(SP_REPEATS):
-            dp_sync(torch, dev)
-            t0 = time.perf_counter()
-            run(img, win)
-            dp_sync(torch, dev)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        arrays[f"dets_{tag}"] = dets.cpu().numpy()
-        rec[f"predict_{tag}"] = {"ms": ms, "peak_bytes": peak_bytes(torch, dev),
-                                 "exchanged_per_predict": sent,
-                                 "kept": int((arrays[f"dets_{tag}"][..., 5] > 0).sum())}
+        arrays[f"dets_{tag}"], rec[f"predict_{tag}"] = sp_timed(
+            torch, m, dev, run, img, win)
         del model, run
-    model = m.api.init_model(cfg.replace(compute_dtype="float32", locked_layers=()),
-                             DP_SEED, device=dev)
-    state = m.ts.init_train_state(model, device=dev, mesh=mesh)
-    step = m.ts.make_train_step(model, device=dev) if mesh is None \
-        else m.spatial.spatial_train_step(model, mesh)
-    gen = torch.Generator().manual_seed(11)
-    losses, walls = [], []
-    peak_reset(torch, dev)
-    for b in dp_batches(np, m, size):
-        dp_sync(torch, dev)
-        t0 = time.perf_counter()
-        _, metrics = step(state, {k: v[:SP_BATCH] for k, v in b.items()}, gen)
-        losses.append(float(metrics["total_loss"]))   # synchronizes
-        walls.append(time.perf_counter() - t0)
-    rec["step_f32_stage2"] = {"losses": losses, "step_wall_s": walls,
-                              "peak_bytes": peak_bytes(torch, dev),
-                              "digest": state_digest(torch, model, state.opt)}
+    rec["predict_int8"], int8_arrays, int8 = sp_int8(
+        np, torch, m, mesh, dev, root, cfg, img, win, images, int8)
+    arrays.update(int8_arrays)
+    rec.update(sp_steps(np, torch, m, mesh, dev, cfg, size))
     rec["launches"] = {"K1": k1.launches, "K3": k3.launches}
-    del model, state, step
-    return rec, arrays
+    return rec, arrays, int8
 
 
 def sp_compare(np, results, ref_rec, ref_arrays):
@@ -2593,7 +2705,8 @@ def sp_compare(np, results, ref_rec, ref_arrays):
     scores within rtol 1e-5, ``tests/test_parallel.py``'s), the bf16
     kept count within 2, the step-1 loss within rel 1e-4, the replicas
     bit-equal after DP_STEPS steps, every loss finite, K1 and K3
-    launched in each rank.  Returns the comparison record."""
+    launched in each rank; the int8 graph (``sp_int8_compare``) and the
+    remat step (``sp_remat_compare``).  Returns the comparison record."""
     recs = [r["spatial"] for r, _ in results]
     want = ref_arrays["dets_f32"]
     for (r, arrays), sp in zip(results, recs):
@@ -2623,12 +2736,87 @@ def sp_compare(np, results, ref_rec, ref_arrays):
     need(rel <= 1e-4, f"spatial step: step-1 loss {got} against one "
          f"process's {want} (rel {rel})")
     return {"step1_loss_rel": rel,
+            "int8_predict": sp_int8_compare(np, results, ref_rec, ref_arrays),
+            "remat_step": sp_remat_compare(np, results, ref_rec),
             "losses_f32": recs[0]["step_f32_stage2"]["losses"],
             "losses_one_process_f32": ref_rec["step_f32_stage2"]["losses"],
             "kept_f32": ref_rec["predict_f32"]["kept"],
             "kept_bf16": [sp["predict_bf16"]["kept"] for sp in recs]
             + [ref_rec["predict_bf16"]["kept"]],
             "one_process": ref_rec, "ranks": recs}
+
+
+def sp_int8_compare(np, results, ref_rec, ref_arrays):
+    """The int8 graph on the sp = 2 ranks: the same detections on every
+    rank, the kept count within 2 of one process's and the top 5 scores
+    within rtol 1e-2 (the bf16 rule), each probe layer's int32
+    accumulator rows equal to one process's to the bit (the same input),
+    K1 launched in each rank's int8 predict.  Returns its record."""
+    want = ref_arrays["dets_int8"]
+    kept_want = ref_rec["predict_int8"]["kept"]
+    for r, arrays in results:
+        sp, tag = r["spatial"], f"spatial int8 predict rank {r['rank']}"
+        got = arrays["sp:dets_int8"]
+        need(np.array_equal(got, results[0][1]["sp:dets_int8"]),
+             f"{tag}: differs from rank 0's")
+        kept = sp["predict_int8"]["kept"]
+        need(kept_want > 0 and abs(kept - kept_want) <= 2,
+             f"{tag}: kept {kept} vs one process's {kept_want}")
+        k = min(5, kept, kept_want)
+        top = lambda d: np.sort(d[0, :, 5])[::-1][:k]
+        need(np.allclose(top(got), top(want), rtol=1e-2, atol=3e-3),
+             f"{tag}: top scores {top(got)} vs {top(want)}")
+        for name in SP_INT8_PROBES:
+            a, b = arrays[f"sp:probe_rows:{name}"]
+            acc = arrays[f"sp:probe_acc:{name}"]
+            ref = ref_arrays[f"probe_acc:{name}"][:, a:b]
+            need(acc.dtype == np.int32 and acc.shape == ref.shape
+                 and np.array_equal(acc, ref),
+                 f"{tag}: {name}'s accumulator rows {a}:{b} differ from one "
+                 f"process's ({int((acc != ref).sum()) if acc.shape == ref.shape else acc.shape})")
+        need(r["device"] == "cpu" or sp["predict_int8"]["launches_K1"] > 0,
+             f"{tag}: K1 never launched")
+    ranks = [r["spatial"]["predict_int8"] for r, _ in results]
+    return {"kept": [x["kept"] for x in ranks], "kept_one_process": kept_want,
+            "threshold": ref_rec["predict_int8"]["threshold"],
+            "ms_per_rank": [x["ms"] for x in ranks],
+            "ms_one_process": ref_rec["predict_int8"]["ms"],
+            "exchanged_per_predict": [x["exchanged_per_predict"] for x in ranks],
+            "peak_bytes": [x["peak_bytes"] for x in ranks],
+            "peak_bytes_one_process": ref_rec["predict_int8"]["peak_bytes"],
+            "launches_K1": [x["launches_K1"] for x in ranks],
+            "probe_layers_bit_equal": list(SP_INT8_PROBES)}
+
+
+def sp_remat_compare(np, results, ref_rec):
+    """The float32 stage-2 spatial step with ``remat`` against the one
+    without, in each sp = 2 rank: every step's metrics equal, the state
+    (parameters, BN statistics, Adam's moments) bit-equal, on every rank
+    alike, the peak memory below the plain step's, K3 launched.  Returns
+    its record."""
+    for r, _ in results:
+        sp, tag = r["spatial"], f"spatial remat step rank {r['rank']}"
+        plain, remat = sp["step_f32_stage2"], sp["step_remat"]
+        need(remat["metrics"] == plain["metrics"],
+             f"{tag}: metrics {remat['metrics']} vs {plain['metrics']}")
+        need(remat["digest"] == plain["digest"],
+             f"{tag}: the state differs from the plain step's")
+        need(r["device"] == "cpu" or remat["peak_bytes"] < plain["peak_bytes"],
+             f"{tag}: peak {remat['peak_bytes']} not below {plain['peak_bytes']}")
+        need(r["device"] == "cpu" or remat["launches_K3"] > 0,
+             f"{tag}: K3 never launched")
+    out = {}
+    for key in ("step_f32_stage2", "step_remat"):
+        ranks = [r["spatial"][key] for r, _ in results]
+        out["remat" if key == "step_remat" else "plain"] = {
+            "step_wall_s": [x["step_wall_s"] for x in ranks],
+            "peak_bytes": [x["peak_bytes"] for x in ranks],
+            "peak_above_before_bytes": [x["peak_above_before_bytes"] for x in ranks],
+            "launches_K3": [x["launches_K3"] for x in ranks],
+            "one_process": {k: ref_rec[key][k] for k in
+                            ("step_wall_s", "peak_bytes", "peak_above_before_bytes")}}
+    out["losses"] = results[0][0]["spatial"]["step_remat"]["losses"]
+    return out
 
 
 def dp_worker(spec_path: str) -> None:
@@ -2665,9 +2853,9 @@ def dp_worker(spec_path: str) -> None:
             rec["sweep"] = sweep
             # the same ranks as a 1-D sp mesh: the height split between them
             sp_mesh = m.sharding.make_mesh_2d(1, mesh.size, spec["device"])
-            rec["spatial"], sp_arrays = sp_run(np, torch, m, sp_mesh, dev,
-                                               spec["root"], spec["threshold"],
-                                               size)
+            rec["spatial"], sp_arrays, _ = sp_run(
+                np, torch, m, sp_mesh, dev, spec["root"], spec["threshold"],
+                size, spec["int8"])
             arrays.update({f"sp:{k}": v for k, v in sp_arrays.items()})
         np.savez(spec["out"], **arrays)
         rec.update(backend=backend, rank=mesh.rank, world=mesh.size,
@@ -2680,16 +2868,17 @@ def dp_worker(spec_path: str) -> None:
 
 
 def run_dp_workers(np, root, tag, backend, world, sweep, threshold, size,
-                   device="cuda", timeout=600):
-    """Start ``world`` ranks of ``dp_worker`` together and wait for them:
-    [(record, arrays)] by rank, and the wall s."""
+                   device="cuda", timeout=600, int8=None):
+    """Start ``world`` ranks of ``dp_worker`` together and wait for them
+    (``int8``: ``sp_run``'s spec for the spatial int8 predict, with
+    ``sweep``): [(record, arrays)] by rank, and the wall s."""
     init = f"tcp://127.0.0.1:{free_port()}"
     procs, specs = [], []
     t0 = time.time()
     for rank in range(world):
         spec = {"rank": rank, "world": world, "init": init, "backend": backend,
                 "sweep": sweep, "threshold": threshold, "root": root,
-                "size": size, "device": device,
+                "size": size, "device": device, "int8": int8,
                 "out": os.path.join(root, f"dp_{tag}_{rank}.npz")}
         path = os.path.join(root, f"dp_{tag}_{rank}.json")
         with open(path, "w") as f:
@@ -2847,14 +3036,16 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
     thresh = m.calibrate_threshold(model, images[:2], cfg)
     del model
     ref_sweep = dp_sweep(np, torch, m, None, dev, root, thresh, size)
-    ref_sp, ref_sp_arrays = sp_run(np, torch, m, None, dev, root, thresh, size)
+    ref_sp, ref_sp_arrays, int8 = sp_run(np, torch, m, None, dev, root,
+                                         thresh, size)
     if dev.type == "cuda":
         rec["nccl_world1"] = dp_world1_nccl(np, torch, m, batches, size)
     print(f"parallel: one process and world-size-1 NCCL done in "
           f"{time.time() - t0:.0f} s", flush=True)
 
     results, wall = run_dp_workers(np, root, "gloo", "gloo", 2, True, thresh,
-                                   size, device)
+                                   size, device, int8=int8)
+    os.remove(int8["probe"])
     recs = [r for r, _ in results]
     on = "cuda:0" if dev.type == "cuda" else "cpu"
     need(all(r["backend"] == "gloo" and r["device"] == on for r in recs)
@@ -2881,6 +3072,7 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
     rec["gloo_2rank_one_card"] = gloo
     sp = sp_compare(np, results, ref_sp, ref_sp_arrays)
     rec["spatial_sp2_one_card"] = sp
+    rec["int8_predict"], rec["remat_step"] = sp["int8_predict"], sp["remat_step"]
     launches = {"K1": sum(r[p]["launches"]["K1"] for r in recs
                           for p in ("f32_stage2", "bf16_default", "spatial")),
                 "K2": 0,
@@ -2899,6 +3091,19 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
           f"step-1 loss rel {sp['step1_loss_rel']:.3g}; bf16 predict exchanges "
           f"{sp['ranks'][0]['predict_bf16']['exchanged_per_predict']}; K1/K3 "
           f"{[x['launches'] for x in sp['ranks']]}; {smi_line}", flush=True)
+    q, rm = rec["int8_predict"], rec["remat_step"]
+    gb = lambda xs: [None if x is None else round(x / 1e9, 3) for x in xs]
+    print(f"parallel: spatial int8 predict ms per rank "
+          f"{[round(med(x), 2) for x in q['ms_per_rank']]} (one process "
+          f"{round(med(q['ms_one_process']), 2)}), kept {q['kept']} vs "
+          f"{q['kept_one_process']}, exchanges {q['exchanged_per_predict'][0]}, "
+          f"{'/'.join(q['probe_layers_bit_equal'])} accumulators bit-equal, K1 "
+          f"{q['launches_K1']}; remat step wall "
+          f"{[round(x, 4) for x in rm['remat']['step_wall_s'][0]]} s against "
+          f"{[round(x, 4) for x in rm['plain']['step_wall_s'][0]]} s, peak per "
+          f"rank {gb(rm['remat']['peak_bytes'])} against "
+          f"{gb(rm['plain']['peak_bytes'])} GB, metrics and state equal, K3 "
+          f"{rm['remat']['launches_K3']}; {smi_line}", flush=True)
     print(f"parallel: gloo 2 ranks on one card: f32 step wall "
           f"{[round(x, 4) for x in recs[0]['f32_stage2']['step_wall_s']]} s, bf16 "
           f"{[round(x, 4) for x in recs[0]['bf16_default']['step_wall_s']]} s "

@@ -34,6 +34,23 @@ JAX package's NHWC layout.  Numerics follow the JAX blocks step by step:
     unequal rows weigh by their rows.  A rank without rows convolves
     ``kernel`` zero rows and keeps none of the output, so its autograd
     graph, and the collectives of its backward, are the other ranks'.
+    The int8 ``QuantConv`` takes its halo the same way (``halo_rows``),
+    as int8 rows;
+  * ``remat`` with collectives (sync-BN, height sharding): the whole
+    block stays inside the checkpoint, halo exchange included, so a
+    block keeps only this rank's own rows of its input, and the
+    recomputation runs the block's collectives again inside the backward
+    (the exchange, BN's moment sums), as GSPMD re-runs them under JAX's
+    ``nn.remat``.  That needs every rank to recompute the same blocks in
+    the same order, interleaved alike with the backward's own
+    collectives.  The autograd engine orders its work by the graph
+    alone, and every rank's graph has the same shape (a rank without
+    rows convolves zero rows), so the recomputed collectives pair up as
+    the forward's did: the spatial tests hold the remat step to the
+    plain one on 2 + 1 and 1 + 1 + 1 + 0 row splits.  Keeping the
+    exchanged input outside the checkpoint would move only the exchange
+    out of the recomputation (BN's sums stay in it) and keep the halo
+    rows too.
 
 The serving graphs add ``DeployConv`` (conv + bias + leaky, BN folded
 away) and ``CommutedConcatConvBN`` (the decoder's concat 1x1 run before
@@ -76,29 +93,40 @@ def _same_pad(size: int, kernel: int, stride: int):
     return total // 2, total - total // 2
 
 
+def halo_rows(x: torch.Tensor, kernel: int, stride: int, shard):
+    """This rank's rows of NCHW ``x`` (any dtype) with the rows a
+    ``kernel``-tall window at ``stride`` needs around them: the pads of
+    the global height's SAME, taken from their owners
+    (``HeightShard.exchange``), zeros only at the image's edges.  A rank
+    without rows gets ``kernel`` zero rows (a conv refuses an empty
+    height) and must keep none of the output.  Returns (rows, whether
+    the rank owns none)."""
+    x = shard.exchange(x, *_same_pad(shard.ranges(x.shape[3])[0], kernel,
+                                     stride))
+    if x.shape[2]:
+        return x, False
+    return torch.cat([x, x.new_zeros(x.shape[:2] + (kernel, x.shape[3]))],
+                     2), True
+
+
 def conv_same(x: torch.Tensor, weight: torch.Tensor, bias, stride: int,
               shard=None):
     """Conv2d with Flax 'SAME' padding (asymmetric where XLA's is); with
     a ``shard`` (a ``HeightShard``), on this rank's rows of the height."""
     k = weight.shape[-1]
     pw = _same_pad(x.shape[3], k, stride)
+    empty = False
     if shard is not None:
-        # the pads of the global height: halo rows, zeros only at the
-        # image's edges
-        x = shard.exchange(x, *_same_pad(shard.ranges(x.shape[3])[0], k,
-                                         stride))
-        if x.shape[2] == 0:
-            # F.conv2d refuses an empty height
-            x = torch.cat([x, x.new_zeros(x.shape[:2] + (k, x.shape[3]))], 2)
-            x = F.pad(x, (pw[0], pw[1], 0, 0))
-            return F.conv2d(x, weight, bias, stride)[:, :, :0]
+        x, empty = halo_rows(x, k, stride, shard)
         ph = (0, 0)
     else:
         ph = _same_pad(x.shape[2], k, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]))
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, weight, bias, stride, 0)
+        y = F.conv2d(x, weight, bias, stride, (ph[0], pw[0]))
+    else:
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        y = F.conv2d(x, weight, bias, stride, 0)
+    return y[:, :, :0] if empty else y
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None,
@@ -150,7 +178,8 @@ class ConvBN(nn.Module):
     ``torch.utils.checkpoint`` and are recomputed in the backward, so only
     the block's input is kept.  The recomputed function returns the batch
     moments and moves no statistic: the running statistics move once,
-    outside it.
+    outside it.  Under a height shard the checkpoint holds the halo
+    exchange too (the module docstring says why).
 
     ``bn_mesh`` (None outside ``sync_batch_norm``) is the mesh whose
     global batch a train-mode forward normalizes over; ``height_shard``
@@ -224,12 +253,12 @@ def sync_batch_norm(model: nn.Module, mesh):
 @contextlib.contextmanager
 def height_sharded(model: nn.Module, mesh, image_hw):
     """While the block runs, every conv block of ``model`` (``ConvBN``,
-    ``CommutedConcatConvBN``, ``DeployConv``, ``ConvBias``) and the model
-    itself run on this rank's rows of images of ``image_hw`` over
-    ``mesh`` (a ``parallel.sharding.Mesh2D``): the convs exchange their
-    halos, train-mode BatchNorm sums over the grid, and the model gathers
-    its raw outputs (``models/dis_yolo.py``).  Yields the
-    ``HeightShard``."""
+    ``CommutedConcatConvBN``, ``DeployConv``, ``ConvBias``,
+    ``QuantConv``) and the model itself run on this rank's rows of images
+    of ``image_hw`` over ``mesh`` (a ``parallel.sharding.Mesh2D``): the
+    convs exchange their halos, train-mode BatchNorm sums over the grid,
+    and the model gathers its raw outputs (``models/dis_yolo.py``).
+    Yields the ``HeightShard``."""
     shard = HeightShard(mesh, *image_hw)
     layers = [m for m in model.modules() if hasattr(m, "height_shard")]
     for layer in layers:

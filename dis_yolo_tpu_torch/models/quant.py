@@ -20,6 +20,17 @@ domain, where 0 stays 0) and unfolded into an im2col matrix, and
 exact; a float32 conv would not be (a 3x3x1024 layer sums up to
 9216 * 127^2 ~ 1.5e8 per output, past 2^24).  The im2col matrix costs
 kh*kw times the layer's int8 input in device memory.
+
+Height sharding (``layers.height_sharded``, ``parallel/spatial.py``):
+``QuantConv`` quantizes its rows, then takes its halo from the rows'
+owners as int8 (``layers.halo_rows``; quantizing is elementwise, so
+that is the int8 of the exchanged float rows, at a quarter of float32's
+bytes), and convolves the rows, already padded, with only the width
+padded.  A rank without rows convolves ``kernel`` zero rows and keeps no
+output.  The calibration graph runs sharded too, but keeps no
+``records``: a rank's statistics are not the image's (JAX's sharded
+forward records none either), so ``calibrate_deploy`` stays a
+one-process call.
 """
 
 from __future__ import annotations
@@ -32,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dis_yolo_tpu_torch.models.layers import _same_pad, conv_same, leaky_relu
+from dis_yolo_tpu_torch.models.layers import (_same_pad, conv_same, halo_rows,
+                                              leaky_relu)
 
 
 def quantize_input(x: torch.Tensor, inv_sx: torch.Tensor) -> torch.Tensor:
@@ -49,18 +61,21 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
-def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor,
-              stride: int) -> torch.Tensor:
+def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
+              pad_rows: bool = True) -> torch.Tensor:
     """Exact s8 x s8 -> s32 conv with XLA 'SAME' padding: x_q [B,H,W,Cin]
     int8 (NHWC), w_q [Cout,Cin,kh,kw] int8 -> [B,Ho,Wo,Cout] int32.
+    ``pad_rows=False``: the rows of x_q already hold their padding (a
+    height-sharded layer's halo), so only the width is padded.
 
     im2col in (kh, kw, Cin) order, then ``torch._int_mm``.  Its CUDA
     rules (M > 16 rows, K and N multiples of 8) are met by zero padding,
     which adds nothing to the sums."""
     b, h, w, cin = x_q.shape
     cout, _, kh, kw = w_q.shape
-    ph, pw = _same_pad(h, kh, stride), _same_pad(w, kw, stride)
-    ho, wo = -(-h // stride), -(-w // stride)
+    ph = _same_pad(h, kh, stride) if pad_rows else (0, 0)
+    pw = _same_pad(w, kw, stride)
+    ho, wo = (h + ph[0] + ph[1] - kh) // stride + 1, -(-w // stride)
     if kh == kw == 1 and stride == 1:
         cols = x_q.reshape(b * h * w, cin)
     else:
@@ -97,7 +112,11 @@ class QuantConv(nn.Module):
     ``inv_sx`` (scalar) and ``s_out`` [O] float32 (from
     ``quantize_deploy``).  Calibration mode (``calibrate=True``) holds the
     deploy conv's ``conv.weight``/``conv.bias``, runs the float conv and
-    keeps its input's statistics in ``records``."""
+    keeps its input's statistics in ``records``.  ``height_shard`` (None
+    outside ``layers.height_sharded``) is the row partition it runs on
+    (the module docstring)."""
+
+    height_shard = None
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, alpha: float = 0.1,
@@ -120,15 +139,28 @@ class QuantConv(nn.Module):
             self.register_buffer("s_out", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = self.height_shard
         if self.calibrate:
-            self.records = record_input_scale(x, self.calib_pct)
+            self.records = {} if shard is not None \
+                else record_input_scale(x, self.calib_pct)
             y = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                          self.conv.bias.to(self.dtype), self.stride)
+                          self.conv.bias.to(self.dtype), self.stride, shard)
         else:
-            acc = int8_conv(quantize_input(x, self.inv_sx), self.w_q,
-                            self.stride)
-            y = (acc.float() * self.s_out + self.bias).permute(0, 3, 1, 2)
+            y = (self.accumulate(x).float() * self.s_out
+                 + self.bias).permute(0, 3, 1, 2)
         return leaky_relu(y.to(self.dtype), self.alpha)
+
+    def accumulate(self, x: torch.Tensor) -> torch.Tensor:
+        """The int32 accumulator [B, Ho, Wo, Cout] of NCHW ``x``: this
+        rank's output rows under a height shard."""
+        x_q = quantize_input(x, self.inv_sx)
+        if self.height_shard is None:
+            return int8_conv(x_q, self.w_q, self.stride)
+        rows, empty = halo_rows(x_q.permute(0, 3, 1, 2), self.w_q.shape[-1],
+                                self.stride, self.height_shard)
+        acc = int8_conv(rows.permute(0, 2, 3, 1), self.w_q, self.stride,
+                        pad_rows=False)
+        return acc[:, :0] if empty else acc
 
 
 def calibrate_deploy(model: nn.Module, deploy_sd: Mapping[str, torch.Tensor],

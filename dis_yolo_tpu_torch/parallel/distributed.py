@@ -35,6 +35,7 @@ raises; none falls back to another device or to one process.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Dict, Optional, Tuple
 
@@ -55,7 +56,8 @@ def choose_backend(device_type: str, ranks_per_host: int,
 def initialize(device="cuda", backend: Optional[str] = None,
                init_method: Optional[str] = None,
                world_size: Optional[int] = None,
-               rank: Optional[int] = None) -> Optional[str]:
+               rank: Optional[int] = None,
+               timeout_s: Optional[float] = None) -> Optional[str]:
     """Join the process group of a multi-process run; returns the backend.
 
     The arguments default to torchrun's environment (``env://``).  A
@@ -64,7 +66,9 @@ def initialize(device="cuda", backend: Optional[str] = None,
     one process.  On CUDA the rank's card is ``LOCAL_RANK`` modulo the
     host's card count, made the current device.  A one-element
     ``all_reduce`` right after the start makes a broken group raise here,
-    not at the first step.
+    not at the first step.  ``timeout_s`` bounds each collective's wait
+    (PyTorch's default when None): a rank whose peers never join a
+    collective raises instead of waiting on.
     """
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
@@ -85,8 +89,10 @@ def initialize(device="cuda", backend: Optional[str] = None,
     if backend is None:
         per_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world_size)))
         backend = choose_backend(dev.type, per_host, cards)
-    dist.init_process_group(backend=backend, init_method=init_method,
-                            world_size=world_size, rank=rank)
+    dist.init_process_group(
+        backend=backend, init_method=init_method, world_size=world_size,
+        rank=rank, timeout=None if timeout_s is None
+        else datetime.timedelta(seconds=timeout_s))
     dist.all_reduce(torch.ones((1,), device=dev))
     print(f"torch.distributed: rank {rank} of {world_size}, backend "
           f"{backend}, device {dev}", flush=True)

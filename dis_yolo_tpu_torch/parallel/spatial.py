@@ -33,9 +33,13 @@ Every function takes global arrays, as the jitted JAX functions do, and
 each rank takes its block: its dp rows of the batch and its sp rows of
 the height.  The outputs are whole and equal on every rank (JAX's
 ``P()``).  They run on ``mesh.device``; a rank that owns no row of the
-height still joins every collective.  The int8 graphs (``cfg.quant``,
-``cfg.quant_calibrate``: ``QuantConv`` pads itself) and ``cfg.remat`` in
-the step are refused with a ValueError.
+height still joins every collective.  Every graph and knob that JAX's
+spatial functions take runs here: the serving graphs (deploy, s2d stem,
+commuted decoder, int8: ``QuantConv`` exchanges int8 halo rows; the
+calibration graph keeps no statistics), each ``mask_stride``, and in the
+step ``remat`` (the recomputation runs the blocks' collectives again)
+and ``grad_accum`` (microbatches of the global batch, as GSPMD splits
+JAX's one-device program).
 """
 
 from __future__ import annotations
@@ -55,9 +59,6 @@ from dis_yolo_tpu_torch.train import train_step as ts
 def _check(model: DISYolo, mesh: Mesh2D) -> None:
     if not isinstance(mesh, Mesh2D):
         raise TypeError(f"spatial partitioning needs a Mesh2D, got {mesh!r}")
-    if model.cfg.quant or model.cfg.quant_calibrate:
-        raise ValueError("the int8 graph is not ported to spatial "
-                         "partitioning (QuantConv pads itself)")
     if next(model.parameters()).device.type != mesh.device.type:
         raise ValueError(f"model on {next(model.parameters()).device}, "
                          f"mesh on {mesh.device}")

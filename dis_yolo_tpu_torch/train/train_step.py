@@ -74,6 +74,12 @@ gathered raw outputs, whole on every sp rank.  The L2 term's gradient
 is taken on sp rank 0 only, and the packed all-reduce sums over the
 grid and divides by the dp size, the metrics entering from sp rank 0:
 the gradient is the one-process gradient of the global batch.
+``grad_accum`` splits the global batch into microbatches, and each rank
+takes its dp rows of each (``_spatial_rows``): JAX's spatial step is the
+one-device program partitioned, whose microbatches are slices of the
+global batch (the DP step's microbatch i is every rank's i-th instead).
+``remat`` recomputes each block, its collectives included, in the
+backward (``models/layers.py``).
 
 The step synchronizes with the host in three places, and a block in
 each of its steps: the finite check, the statistics guard and the
@@ -347,8 +353,6 @@ def _check_model(model: DISYolo, device, mesh=None) -> torch.device:
     spatial = isinstance(mesh, Mesh2D)
     # the spatial step normalizes over the whole grid: no bn_axis
     model.cfg.check_trainable(None if spatial else mesh)
-    if spatial and model.cfg.remat:
-        raise ValueError("remat is not ported to the spatial step")
     if mesh is not None:
         if device is not None and torch.device(device).type \
                 != mesh.device.type:
@@ -368,6 +372,21 @@ def init_train_state(model: DISYolo, device=None, mesh=None) -> TrainState:
     _check_model(model, device, mesh)
     return TrainState(model, adam_init(dict(model.named_parameters()),
                                        model.cfg))
+
+
+def _spatial_rows(b: int, n: int, dp) -> list:
+    """This dp rank's rows of a global batch of ``b`` in the spatial step:
+    its rows (``dp.rows``) of each of the ``n`` (``grad_accum``)
+    microbatches in turn, so that its i-th microbatch is its part of the
+    global batch's i-th.  Raises ValueError where the sizes do not
+    divide."""
+    n = max(1, n)
+    if b % n:
+        raise ValueError(f"batch {b} not divisible by grad_accum {n}")
+    micro = b // n
+    mine = dp.rows(micro)
+    return [i * micro + j for i in range(n)
+            for j in range(mine.start, mine.stop)]
 
 
 def _mean_over_mesh(grads, metrics: Dict[str, torch.Tensor], mesh):
@@ -452,7 +471,7 @@ def make_train_step(model: DISYolo, device=None, mesh=None):
         bsz = batch["images"].shape[0]
         # the draws are the global batch's; this rank's are its rows
         if spatial:
-            draw_b, rows = bsz, mesh.dp.rows(bsz)
+            draw_b, rows = bsz, _spatial_rows(bsz, cfg.grad_accum, mesh.dp)
             batch = {k: v[rows] for k, v in batch.items()}
         else:
             world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)

@@ -447,18 +447,21 @@ def _ckpt_case(spec, mesh):
 
 class _Spawn:
     """The ranks started by ``dp_run`` (``tests/test_torch_spatial.py``'s
-    too); ``result()`` waits for them (once) and returns their outputs
-    by rank."""
+    too); ``result()`` waits for them (once: ``timeout_s`` in all, then
+    it kills them, so ranks stuck in a collective fail the test) and
+    returns their outputs by rank."""
 
-    def __init__(self, spec, procs, logs):
+    def __init__(self, spec, procs, logs, timeout_s=WORKER_TIMEOUT_S):
         self.spec, self.procs, self.logs = spec, procs, logs
+        self.timeout_s = timeout_s
         self._outs = None
 
     def result(self):
         if self._outs is None:
+            deadline = time.monotonic() + self.timeout_s
             for p in self.procs:
                 try:
-                    p.wait(timeout=WORKER_TIMEOUT_S)
+                    p.wait(timeout=max(0.0, deadline - time.monotonic()))
                 except subprocess.TimeoutExpired:
                     pass
             self.kill()
