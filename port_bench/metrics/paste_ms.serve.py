@@ -1,0 +1,13 @@
+"""The paste's device time per batch (``ops/paste.py``).
+
+Device milliseconds per batch of the operations launched inside the
+serving driver's ``paste`` span, from the traced sub-window.  Nothing
+when no operation ran there."""
+
+
+def read(out):
+    t = out.trace
+    if t is None or not t.calls:
+        return None
+    s = t.span_device_s("paste")
+    return s / t.calls * 1e3 if s > 0 else None
