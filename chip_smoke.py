@@ -120,10 +120,10 @@ Phases (any failure exits non-zero before the last line is printed):
   wall, ``train_timer`` and ``load_timer`` s/step for both stages (and
   stage 1 fed by 4 loader processes), a profiler window of 5 Solver
   steps (idle share, launches, the largest gaps), the blocking ms of
-  ``save_checkpoint_background``, and the B=1 forward cut after each
-  ``stop_stage``, as the wall of dependent calls
-  (``utils.profiling.chain_scan_time``) and as device time (CUDA-graph
-  replays).
+  ``save_checkpoint_background``, and the device and idle ms of the
+  forward's stage spans (``backbone``, ``heads``, ``mask_decoder``,
+  ``utils/profiling.py``) in one profiled window of full forwards at
+  B=1 (``port_bench.program_trace``).
 
   Device-data training (after the Solver in phase 3, timed in phase 4):
   on the card at 576^2, B=2, ``device_augment.augment_batch`` against
@@ -362,6 +362,14 @@ def kernel_kind(name: str) -> str:
         if any(k in n for k in keys):
             return kind
     return "other"
+
+
+def kernel_launches(profiling, *kernels) -> dict:
+    """Launches so far of ``kernels`` ("K1" .. "K4"; all four by default),
+    from the port's ``kernel.k*`` counters."""
+    c = profiling.counters()
+    return {k: c.get(f"kernel.k{k[1:]}", 0)
+            for k in kernels or ("K1", "K2", "K3", "K4")}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -944,11 +952,11 @@ def solver_modules():
     """The port's training loop, as one namespace."""
     from dis_yolo_tpu_torch import cli
     from dis_yolo_tpu_torch.data import dataset, image_io, rasterize
-    from dis_yolo_tpu_torch.models.dis_yolo import STOP_STAGES, DISYolo
+    from dis_yolo_tpu_torch.models import api
     from dis_yolo_tpu_torch.train import checkpoint as ckpt
     from dis_yolo_tpu_torch.train import solver as solver_mod
     from dis_yolo_tpu_torch.train import train_step as ts
-    from dis_yolo_tpu_torch.utils.profiling import chain_scan_time
+    from dis_yolo_tpu_torch.utils import profiling
     return types.SimpleNamespace(**locals())
 
 
@@ -1136,10 +1144,7 @@ def solver_timing_run(np, torch, m, root, cfg, state_dict, device="cuda", steps=
     (``loader_workers=0``, the default) and stage 1 with 4 worker
     processes (no validation); a profiler window of 5 stage-1 Solver
     steps; the blocking ms of
-    ``save_checkpoint_background``; and the forward ms at B=1 cut after
-    each ``stop_stage``: the wall of chains of dependent calls (CUDA
-    events, the host's launches included) and the device time of
-    CUDA-graph replays."""
+    ``save_checkpoint_background``; and ``forward_stages``."""
     out = {}
     labels = m.dataset.load_labels(cfg, "train")
     rng = np.random.RandomState(0)
@@ -1202,33 +1207,30 @@ def solver_timing_run(np, torch, m, root, cfg, state_dict, device="cuda", steps=
 
     x = torch.from_numpy(np.random.RandomState(1).rand(
         1, cfg.image_size, cfg.image_size, 3).astype(np.float32)).to(device)
-    cuts, device_cuts = {}, {}
-    with torch.no_grad():
-        for stage in m.STOP_STAGES + (None,):
-            net = m.DISYolo(cfg, stop_stage=stage).to(device).eval()
-            net.load_state_dict(state_dict)
-            # wall of dependent calls (the host's launches included), and
-            # device time alone (the same forward replayed as a CUDA graph)
-            cuts[stage or "full"] = m.chain_scan_time(net, x, n=30, repeats=7)
-            try:
-                device_cuts[stage or "full"] = graph_ms(torch, lambda: net(x),
-                                                        n=5, reps=10)
-            except RuntimeError as e:        # a forward that cannot be captured
-                device_cuts[stage or "full"] = f"not measured: {e}"[:200]
-            del net
-
-    def by_stage(cum):
-        names = list(cum)
-        if any(isinstance(v, str) for v in cum.values()):
-            return "not measured"
-        return {n: cum[n] - (cum[names[i - 1]] if i else 0.0)
-                for i, n in enumerate(names)}
-
-    out["forward_ms_b1_cumulative"] = cuts
-    out["forward_ms_b1_by_stage"] = by_stage(cuts)
-    out["forward_device_ms_b1_cumulative"] = device_cuts
-    out["forward_device_ms_b1_by_stage"] = by_stage(device_cuts)
+    net = m.api.create_model(cfg, device)
+    net.load_state_dict(state_dict)
+    out["forward_stages_b1"] = forward_stages(torch, m.profiling, net, x)
     return out
+
+
+def forward_stages(torch, profiling, net, x, calls=10):
+    """Device and idle ms per forward of each stage span
+    (``dis_yolo.backbone``, ``.heads``, ``.mask_decoder``) over ``calls``
+    full forwards in one profiled window with the spans on, after one
+    warm forward; ``unspanned`` is what ran outside them (the window's
+    ends, between the forwards)."""
+    from port_bench import program_trace
+    with torch.no_grad():
+        net(x)
+        tables = []
+        with program_trace.profiled(calls, tables, profiling):
+            for _ in range(calls):
+                net(x)
+    t = tables[0]
+    return {"calls": calls, "busy_ms": t["busy_ms"], "window_ms": t["window_ms"],
+            "stages": {name.split(".", 1)[1]: t["spans"].get(name, "not measured")
+                       for name in program_trace.FORWARD_SPANS},
+            "unspanned": t["unspanned"]}
 
 # the device-data training phase: the P6 split of solver_split, on-card
 # augmentation and corpus assembly, K-step blocks, grad_accum, remat and
@@ -1851,6 +1853,7 @@ def artifact_worker(spec_path: str) -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dis_yolo_tpu_torch.export import load_artifact
     from dis_yolo_tpu_torch.ops import custom_ops
+    from dis_yolo_tpu_torch.utils import profiling
 
     def stub(*args, **kwargs):
         raise AssertionError("a plain version ran inside a loaded artifact")
@@ -1863,7 +1866,6 @@ def artifact_worker(spec_path: str) -> None:
     inputs = {b: (torch.from_numpy(data[f"images{b}"]).cuda(),
                   torch.from_numpy(data[f"windows{b}"]).cuda())
               for b in EXPORT_BATCHES}
-    k1, k2 = custom_ops.assemble_masks_batch_cuda, custom_ops.nms_cuda
     report, outs = {}, {}
     for art in spec["artifacts"]:
         t0 = time.perf_counter()
@@ -1871,11 +1873,12 @@ def artifact_worker(spec_path: str) -> None:
         rec = {"load_s": time.perf_counter() - t0, "in_shapes": meta["in_shapes"],
                "calls": {}}
         for b in art["batches"]:
-            before = (k1.launches, k2.launches)
+            before = kernel_launches(profiling, "K1", "K2")
             dets, masks = run(*inputs[b])
             torch.cuda.synchronize()
-            rec["calls"][str(b)] = {"K1": k1.launches - before[0],
-                                    "K2": k2.launches - before[1]}
+            rec["calls"][str(b)] = {
+                k: v - before[k]
+                for k, v in kernel_launches(profiling, "K1", "K2").items()}
             outs[f"{art['name']}_b{b}_dets"] = dets.cpu().numpy()
             outs[f"{art['name']}_b{b}_masks"] = masks.cpu().numpy()
             if spec["time"] and b <= 2:
@@ -2389,6 +2392,7 @@ def parallel_modules():
     from dis_yolo_tpu_torch.parallel import distributed, sharding, spatial
     from dis_yolo_tpu_torch.train import train_step as ts
     from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
+    from dis_yolo_tpu_torch.utils import profiling
     from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
     return types.SimpleNamespace(**locals())
 
@@ -2444,7 +2448,6 @@ def dp_train(np, torch, m, mesh, dev, batches, size):
     default config (stage 1).  The mesh may be None: the one-process
     reference on the whole batches.  Returns (record, parameter samples
     after the first and after the last float32 step)."""
-    k1, k3 = m.custom_ops.assemble_masks_batch_cuda, m.cuda_assembly.assemble_bwd_cuda
     rec = {}
     for tag, cfg in (("f32_stage2", m.DISYoloConfig(
             image_size=size, compute_dtype="float32", locked_layers=())),
@@ -2453,7 +2456,7 @@ def dp_train(np, torch, m, mesh, dev, batches, size):
         state = m.ts.init_train_state(model, device=dev, mesh=mesh)
         step = m.ts.make_train_step(model, device=dev, mesh=mesh)
         gen = torch.Generator().manual_seed(11)
-        k1.launches = k3.launches = 0
+        m.profiling.reset_counters()
         losses, walls = [], []
         for b in batches:
             rows = b if mesh is None else m.sharding.shard_batch(mesh, b)
@@ -2466,7 +2469,7 @@ def dp_train(np, torch, m, mesh, dev, batches, size):
                 sample = {f"step1:{k}": v for k, v in
                           param_sample(np, torch, model).items()}
         rec[tag] = {"losses": losses, "step_wall_s": walls,
-                    "launches": {"K1": k1.launches, "K3": k3.launches},
+                    "launches": kernel_launches(m.profiling, "K1", "K3"),
                     "digest": state_digest(torch, model, state.opt)}
         if tag == "f32_stage2":
             sample.update({f"last:{k}": v for k, v in
@@ -2574,7 +2577,6 @@ def sp_int8(np, torch, m, mesh, dev, root, cfg, img, win, images, int8):
     takes ``int8`` (that calibration, threshold and file) and runs each
     probe layer, height-sharded, on its rows of the saved input.
     Returns (record, arrays, the ``int8`` spec for the ranks)."""
-    k1 = m.custom_ops.assemble_masks_batch_cuda
     qcfg = cfg.replace(quant=True)
     dsd = m.fold.deploy_variables(
         m.api.init_model(cfg, DP_SEED, device=dev).state_dict())
@@ -2601,9 +2603,10 @@ def sp_int8(np, torch, m, mesh, dev, root, cfg, img, win, images, int8):
     thresh = int8["threshold"]
     run = (lambda i, w: m.api.predict(model, i, w, thresh, device=dev)) \
         if mesh is None else m.spatial.spatial_predict(model, mesh, thresh)
-    k1_before = k1.launches
+    k1_before = kernel_launches(m.profiling, "K1")["K1"]
     dets, rec = sp_timed(torch, m, dev, run, img, win)
-    rec.update(launches_K1=k1.launches - k1_before, threshold=thresh)
+    rec.update(launches_K1=kernel_launches(m.profiling, "K1")["K1"] - k1_before,
+               threshold=thresh)
     arrays = {"dets_int8": dets}
     saved = torch.load(int8["probe"])
     with torch.no_grad():
@@ -2630,7 +2633,6 @@ def sp_steps(np, torch, m, mesh, dev, cfg, size):
     the bit): per run every step's metrics and wall, the peak memory
     (also above what was allocated before the model), the state's digest
     and K3's launches."""
-    k3 = m.cuda_assembly.assemble_bwd_cuda
     batches = [{k: v[:SP_BATCH] for k, v in b.items()}
                for b in dp_batches(np, m, size)]
     out = {}
@@ -2645,7 +2647,7 @@ def sp_steps(np, torch, m, mesh, dev, cfg, size):
             else m.spatial.spatial_train_step(model, mesh)
         gen = torch.Generator().manual_seed(11)
         rows, walls = [], []
-        k3_before = k3.launches
+        k3_before = kernel_launches(m.profiling, "K3")["K3"]
         peak_reset(torch, dev)
         with deterministic(torch):
             for b in batches:
@@ -2660,7 +2662,7 @@ def sp_steps(np, torch, m, mesh, dev, cfg, size):
             "step_wall_s": walls, "peak_bytes": peak,
             "peak_above_before_bytes": None if peak is None else peak - before,
             "digest": state_digest(torch, model, state.opt),
-            "launches_K3": k3.launches - k3_before}
+            "launches_K3": kernel_launches(m.profiling, "K3")["K3"] - k3_before}
         del model, state, step, metrics
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2677,12 +2679,11 @@ def sp_run(np, torch, m, mesh, dev, root, thresh, size, int8=None):
     process (mesh None), their reference.  Returns (record, arrays, the
     int8 spec for the ranks), with K1's and K3's launches over the
     run."""
-    k1, k3 = m.custom_ops.assemble_masks_batch_cuda, m.cuda_assembly.assemble_bwd_cuda
     cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size)
     images, _, windows = m.DefectValData(cfg, "val").get()
     img, win = images[:1], windows[:1]
     rec, arrays = {}, {}
-    k1.launches = k3.launches = 0
+    m.profiling.reset_counters()
     for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
         model = m.api.init_model(cfg.replace(compute_dtype=dtype), DP_SEED,
                                  device=dev)
@@ -2695,7 +2696,7 @@ def sp_run(np, torch, m, mesh, dev, root, thresh, size, int8=None):
         np, torch, m, mesh, dev, root, cfg, img, win, images, int8)
     arrays.update(int8_arrays)
     rec.update(sp_steps(np, torch, m, mesh, dev, cfg, size))
-    rec["launches"] = {"K1": k1.launches, "K3": k3.launches}
+    rec["launches"] = kernel_launches(m.profiling, "K1", "K3")
     return rec, arrays, int8
 
 
@@ -3165,6 +3166,7 @@ def main() -> None:
     from dis_yolo_tpu_torch.train import train_step as ts
     from dis_yolo_tpu_torch.train.synthetic import synthetic_batch
     from dis_yolo_tpu_torch.losses.mask_loss import draw_uniforms
+    from dis_yolo_tpu_torch.utils import profiling
     from dis_yolo_tpu_torch.utils.runtime import calibrate_threshold
 
     # ---- phase 1: device and build ------------------------------------
@@ -3294,15 +3296,11 @@ def main() -> None:
         dets, masks = api.predict(m, images[b], windows[b], th)
         return (dets, masks) + paste.paste_masks_batch(masks, dets, size, size, size)
 
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     outs = {(b, k2): serve(model_k2 if k2 else model, b)
             for b in (1, 2) for k2 in (False, True)}
     torch.cuda.synchronize()
-    launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
-                "K2": custom_ops.nms_cuda.launches,
-                "K3": cuda_assembly.assemble_bwd_cuda.launches}
+    launches = kernel_launches(profiling, "K1", "K2", "K3")
     print(f"main path launches: {launches}", flush=True)
     need(launches["K1"] > 0 and launches["K2"] > 0,
          f"a kernel of the path never launched: {launches}")
@@ -3364,9 +3362,7 @@ def main() -> None:
     state1, step1 = ts.init_train_state(trainer1), ts.make_train_step(trainer1)
     gen_t = torch.Generator().manual_seed(1)
 
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     metrics = []
     for _ in range(3):
         state1, m = step1(state1, tbatch, gen_t)
@@ -3392,9 +3388,7 @@ def main() -> None:
                 torch.Generator().manual_seed(2))[1])
         del m_k2
     torch.cuda.synchronize()
-    train_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
-                      "K2": custom_ops.nms_cuda.launches,
-                      "K3": cuda_assembly.assemble_bwd_cuda.launches}
+    train_launches = kernel_launches(profiling, "K1", "K2", "K3")
     print(f"training path launches: {train_launches}", flush=True)
     need(train_launches["K1"] > 0 and train_launches["K3"] > 0
          and train_launches["K2"] > 0,
@@ -3475,10 +3469,7 @@ def main() -> None:
     g_thresh = {g: calibrate_threshold(m, images[1], gcfg)
                 for g, (gcfg, m) in graphs.items()}
     print("serving graphs: thresholds " + json.dumps(g_thresh), flush=True)
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_assembly.extract_planes_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     g_outs = {}
     for g, (gcfg, m) in graphs.items():
         for b in (1, 2):
@@ -3497,10 +3488,7 @@ def main() -> None:
             need(torch.equal(dflt, masks2[i]),
                  f"graph {g} image {i}: assemble_masks_cuda != predict's masks")
     torch.cuda.synchronize()
-    graph_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
-                      "K2": custom_ops.nms_cuda.launches,
-                      "K3": cuda_assembly.assemble_bwd_cuda.launches,
-                      "K4": cuda_assembly.extract_planes_cuda.launches}
+    graph_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
     print(f"serving graphs path launches: {graph_launches}", flush=True)
     need(graph_launches["K1"] > 0 and graph_launches["K4"] > 0,
          f"a kernel of the serving graphs' path never launched: {graph_launches}")
@@ -3565,16 +3553,10 @@ def main() -> None:
     # the evaluation path: the seed-7 model with a threshold calibrated on
     # the eval split, its three sweep routes, with and without K2
     em = eval_modules()
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_assembly.extract_planes_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     eval_record, eval_ctx = eval_phase(np, torch, em, cfg, model.state_dict())
     torch.cuda.synchronize()
-    eval_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
-                     "K2": custom_ops.nms_cuda.launches,
-                     "K3": cuda_assembly.assemble_bwd_cuda.launches,
-                     "K4": cuda_assembly.extract_planes_cuda.launches}
+    eval_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
     print(f"eval path launches: {eval_launches}", flush=True)
     need(eval_launches["K1"] > 0 and eval_launches["K2"] > 0,
          f"a kernel of the eval path never launched: {eval_launches}")
@@ -3588,16 +3570,10 @@ def main() -> None:
     os.makedirs(build_root, exist_ok=True)
     sroot = tempfile.mkdtemp(prefix="solver_smoke_", dir=build_root)
     atexit.register(shutil.rmtree, sroot, True)
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_assembly.extract_planes_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     solver_record, solver_runs = solver_phase(np, torch, sol, sroot)
     torch.cuda.synchronize()
-    solver_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
-                       "K2": custom_ops.nms_cuda.launches,
-                       "K3": cuda_assembly.assemble_bwd_cuda.launches,
-                       "K4": cuda_assembly.extract_planes_cuda.launches}
+    solver_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
     print(f"Solver path launches: {solver_launches}", flush=True)
     need(solver_launches["K1"] > 0 and solver_launches["K3"] > 0,
          f"a kernel of the Solver's path never launched: {solver_launches}")
@@ -3613,16 +3589,10 @@ def main() -> None:
     # path's)
     dd = device_data_modules()
     dd_record = device_data_phase(np, torch, dd, sroot, model.state_dict())
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_assembly.extract_planes_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     dd_record.update(device_data_command(np, torch, dd, sroot))
     torch.cuda.synchronize()
-    dd_launches = {"K1": custom_ops.assemble_masks_batch_cuda.launches,
-                   "K2": custom_ops.nms_cuda.launches,
-                   "K3": cuda_assembly.assemble_bwd_cuda.launches,
-                   "K4": cuda_assembly.extract_planes_cuda.launches}
+    dd_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
     print(f"device-data path launches: {dd_launches}", flush=True)
     need(dd_launches["K1"] > 0 and dd_launches["K3"] > 0,
          f"a kernel of the device-data path never launched: {dd_launches}")
@@ -3646,21 +3616,15 @@ def main() -> None:
         np.random.RandomState(1).rand(1, size, size, 3).astype(np.float32)).cuda()])}
     x_windows = {1: windows[1], 2: windows[2],
                  3: torch.cat([windows[2], windows[2][:1]])}
-    custom_ops.assemble_masks_batch_cuda.launches = 0
-    cuda_assembly.assemble_bwd_cuda.launches = 0
-    cuda_assembly.extract_planes_cuda.launches = 0
-    custom_ops.nms_cuda.launches = 0
+    profiling.reset_counters()
     export_record, export_ctx = export_phase(np, torch, xm, api, graphs, g_thresh,
                                              x_images, x_windows, xroot, sroot,
                                              model.state_dict(), size)
     torch.cuda.synchronize()
     # in this process (the live predicts) and in the artifacts' process
-    export_launches = {
-        "K1": custom_ops.assemble_masks_batch_cuda.launches
-        + export_record["worker_launches"]["K1"],
-        "K2": custom_ops.nms_cuda.launches + export_record["worker_launches"]["K2"],
-        "K3": cuda_assembly.assemble_bwd_cuda.launches,
-        "K4": cuda_assembly.extract_planes_cuda.launches}
+    export_launches = kernel_launches(profiling)
+    for k in ("K1", "K2"):
+        export_launches[k] += export_record["worker_launches"][k]
     print(f"export path launches: {export_launches}", flush=True)
     need(export_record["worker_launches"]["K1"] > 0
          and export_record["worker_launches"]["K2"] > 0,

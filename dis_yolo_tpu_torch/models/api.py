@@ -33,6 +33,7 @@ from dis_yolo_tpu_torch.models.quant import QuantConv
 from dis_yolo_tpu_torch.ops import mask_assembly, nms
 from dis_yolo_tpu_torch.ops.custom_ops import assemble_masks_batch_cuda
 from dis_yolo_tpu_torch.ops.decode import decode_all
+from dis_yolo_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -131,34 +132,40 @@ def predict_from_outputs(cfg: DISYoloConfig, raws: Sequence, windows,
 
     ``cfg.use_pallas_assembly`` picks the assembly: K1 (exact 0 outside
     each box), or the gather formulation times validity (0.5 outside the
-    box on valid rows, as the JAX package's jnp route)."""
+    box on valid rows, as the JAX package's jnp route).  Four spans,
+    ``decode``, ``nms``, ``box_drop`` and ``assemble``, hold every
+    operation (``utils/profiling.py``)."""
     dev = resolve_device(device)
-    raws = [_to_device(r, dev) for r in raws]
-    windows = _to_device(windows, dev).float()
     # the mask-assembly pixel quantization is square-only; letterbox first
-    if raws[3].shape[1] != raws[3].shape[2]:
+    s = raws[3].shape[1]
+    if raws[3].shape[2] != s:
         raise ValueError("predict requires square inputs (letterbox first); "
                          f"got score maps {tuple(raws[3].shape)}")
     with torch.no_grad():
-        preds = decode_all(raws[:3], cfg)
-        dets = nms.filter_detections(preds, windows, cfg, obj_thresh)
-        # drop degenerate boxes whose rounded score-map extent is
-        # non-positive (the reference's keep_ix)
-        s = raws[3].shape[1]
-        boxes_px = torch.round(dets[..., :4] * s)
-        nondegenerate = ((boxes_px[..., 2] - boxes_px[..., 0] > 0)
-                         & (boxes_px[..., 3] - boxes_px[..., 1] > 0))
-        valid = torch.any(dets[..., :4] != 0.0, dim=-1) & nondegenerate
-        dets = dets * valid[..., None]
-        if cfg.use_pallas_assembly:
-            # invalid rows now hold a zero box, which K1 assembles to an
-            # all-zero mask: the gather route's `masks * valid` is not
-            # needed
-            masks = assemble_masks_batch_cuda(raws[3].float().contiguous(),
-                                              dets[..., :4].contiguous(),
-                                              cfg.k_map, apply_sigmoid=True)
-        else:
-            masks = mask_assembly.assemble_masks_batch(
-                raws[3].float(), dets[..., :4], cfg.k_map)
-            masks = masks * valid[..., None, None]
+        with span("decode"):
+            raws = [_to_device(r, dev) for r in raws]
+            preds = decode_all(raws[:3], cfg)
+        with span("nms"):
+            windows = _to_device(windows, dev).float()
+            dets = nms.filter_detections(preds, windows, cfg, obj_thresh)
+        with span("box_drop"):
+            # drop degenerate boxes whose rounded score-map extent is
+            # non-positive (the reference's keep_ix)
+            boxes_px = torch.round(dets[..., :4] * s)
+            nondegenerate = ((boxes_px[..., 2] - boxes_px[..., 0] > 0)
+                             & (boxes_px[..., 3] - boxes_px[..., 1] > 0))
+            valid = torch.any(dets[..., :4] != 0.0, dim=-1) & nondegenerate
+            dets = dets * valid[..., None]
+        with span("assemble"):
+            if cfg.use_pallas_assembly:
+                # invalid rows now hold a zero box, which K1 assembles to
+                # an all-zero mask: the gather route's `masks * valid` is
+                # not needed
+                masks = assemble_masks_batch_cuda(
+                    raws[3].float().contiguous(), dets[..., :4].contiguous(),
+                    cfg.k_map, apply_sigmoid=True)
+            else:
+                masks = mask_assembly.assemble_masks_batch(
+                    raws[3].float(), dets[..., :4], cfg.k_map)
+                masks = masks * valid[..., None, None]
     return dets, masks

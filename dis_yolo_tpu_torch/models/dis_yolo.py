@@ -27,21 +27,15 @@ the parameter names are the same in every variant.
 Under ``layers.height_sharded`` (``parallel/spatial.py``) the forward
 runs on this rank's rows of the image height, every conv exchanging its
 halo, and the four raw outputs are gathered whole on every rank of the
-row before they are returned; a ``stop_stage`` cut returns this rank's
-rows.
+row before they are returned.
 
-``stop_stage`` is a profiling probe, as in the JAX package: the forward
-returns early at a named cut (``STOP_STAGES``: after the stem, the
-128-, 256- and 512-channel stages, the backbone, or the heads: then the
-stride-8 tower's last 1x1 output), as a 1-tuple holding that activation
-NHWC in the compute dtype, so timings of the truncated forwards itemize
-where a forward's time goes.  None (the default) is the full network;
-training never sets it.
+The forward is three spans (``utils/profiling.py``), ``backbone``,
+``heads`` and ``mask_decoder``, which together hold every operation from
+the input cast to the return: a profiled forward's device time and idle
+time by stage.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 from torch import nn
@@ -52,10 +46,10 @@ from dis_yolo_tpu_torch.models.layers import (CommutedConcatConvBN, ConvBias,
                                               upsample2x_nearest)
 from dis_yolo_tpu_torch.models.quant import QuantConv
 from dis_yolo_tpu_torch.models.s2d import space_to_depth
+from dis_yolo_tpu_torch.utils.profiling import span
 
 # the decoder's fusion nodes: ConvBN1x1(concat([skip, up2(small)]))
 _DECODER_FUSION = (77, 80, 83)
-STOP_STAGES = ("stem", "c128", "c256", "c512", "backbone", "heads")
 
 
 def _layer_specs(cfg: DISYoloConfig):
@@ -121,13 +115,9 @@ class DISYolo(nn.Module):
 
     height_shard = None
 
-    def __init__(self, cfg: DISYoloConfig, stop_stage: Optional[str] = None):
+    def __init__(self, cfg: DISYoloConfig):
         super().__init__()
-        if stop_stage is not None and stop_stage not in STOP_STAGES:
-            raise ValueError(f"stop_stage must be one of {STOP_STAGES} or "
-                             f"None, got {stop_stage!r}")
         self.cfg = cfg
-        self.stop_stage = stop_stage
         dtype = getattr(torch, cfg.compute_dtype)
         serving = cfg.deploy or cfg.quant
         self.commute = cfg.decoder_commute and not serving
@@ -162,10 +152,6 @@ class DISYolo(nn.Module):
             return self._c(idx)(skip, small)
         return self._c(idx)(torch.cat([skip, upsample2x_nearest(small)], 1))
 
-    def _stop(self, stage: str, x: torch.Tensor):
-        """(x as NHWC,) when the forward stops at ``stage``, else None."""
-        return (x.permute(0, 2, 3, 1),) if self.stop_stage == stage else None
-
     @staticmethod
     def _head(y: torch.Tensor, a: int) -> torch.Tensor:
         b, c, h, w = y.shape
@@ -176,88 +162,77 @@ class DISYolo(nn.Module):
         cfg = self.cfg
         c = self._c
         a = cfg.anchors_per_scale
-        # NHWC -> NCHW view: channels-last strides.  The copy takes the
-        # input to row-major strides first: a batch of one made with a
-        # numpy newaxis has batch stride 0, which PyTorch reads as NCHW
-        # and convolves with other kernels, other roundings
-        x = images.to(self.compute_dtype, copy=True,
-                      memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
-
-        # ---- Darknet-53 backbone ----
-        if cfg.s2d_stem:
-            # conv1' on the (a, b, ch)-packed input emits conv1's output
-            # repacked at half resolution; conv2' (2x2, stride 1, 'SAME'
-            # pads (0, 1)) lands on conv2's output; no full-res tap
-            x = c(2)(c(1)(space_to_depth(x)))
-            skip1 = None
-        else:
-            x = c(1)(x)
-            skip1 = x                                 # 1/1, 32ch
-            x = c(2)(x)
-        if (cut := self._stop("stem", x)) is not None:
-            return cut
-        x = x + c(4)(c(3)(x))
-        skip2 = x                                     # 1/2, 64ch
-        x = c(5)(x)
-        x = x + c(7)(c(6)(x))
-        x = x + c(9)(c(8)(x))
-        skip3 = x                                     # 1/4, 128ch
-        if (cut := self._stop("c128", x)) is not None:
-            return cut
-        x = c(10)(x)
-        for i in range(8):
-            x = x + c(2 * i + 12)(c(2 * i + 11)(x))
-        skip4 = x                                     # 1/8, 256ch
-        if (cut := self._stop("c256", x)) is not None:
-            return cut
-        x = c(27)(x)
-        for i in range(8):
-            x = x + c(2 * i + 29)(c(2 * i + 28)(x))
-        skip5 = x                                     # 1/16, 512ch
-        if (cut := self._stop("c512", x)) is not None:
-            return cut
-        x = c(44)(x)
-        for i in range(4):
-            x = x + c(2 * i + 46)(c(2 * i + 45)(x))
-        if (cut := self._stop("backbone", x)) is not None:
-            return cut
-
-        # ---- head 1: stride 32 ----
-        for i in range(53, 58):
-            x = c(i)(x)
-        raw_s32 = self._head(c(59)(c(58)(x)), a)
-
-        # ---- head 2: stride 16 ----
-        x = self._up_concat_cbn(61, skip5, c(60)(x))
-        for i in range(62, 66):
-            x = c(i)(x)
-        raw_s16 = self._head(c(67)(c(66)(x)), a)
-
-        # ---- head 3: stride 8 ----
-        x = self._up_concat_cbn(69, skip4, c(68)(x))
-        for i in range(70, 74):
-            x = c(i)(x)
-        raw_s8 = self._head(c(75)(c(74)(x)), a)
-        if (cut := self._stop("heads", x)) is not None:
-            return cut
-
-        # ---- mask decoder: stride 8 -> cfg.mask_stride score maps ----
-        m = self._up_concat_cbn(77, skip3, c(76)(x))
-        m = c(78)(m)
-        if cfg.mask_stride == 4:
-            sm = c(79)(m)
-        else:
-            m = self._up_concat_cbn(80, skip2, c(79)(m))
-            m = c(81)(m)
-            if cfg.mask_stride == 2:
-                sm = c(82)(m)
+        with span("backbone"):
+            # NHWC -> NCHW view: channels-last strides.  The copy takes
+            # the input to row-major strides first: a batch of one made
+            # with a numpy newaxis has batch stride 0, which PyTorch reads
+            # as NCHW and convolves with other kernels, other roundings
+            x = images.to(self.compute_dtype, copy=True,
+                          memory_format=torch.contiguous_format
+                          ).permute(0, 3, 1, 2)
+            if cfg.s2d_stem:
+                # conv1' on the (a, b, ch)-packed input emits conv1's
+                # output repacked at half resolution; conv2' (2x2, stride
+                # 1, 'SAME' pads (0, 1)) lands on conv2's output; no
+                # full-res tap
+                x = c(2)(c(1)(space_to_depth(x)))
+                skip1 = None
             else:
-                m = self._up_concat_cbn(83, skip1, c(82)(m))
-                sm = c(85)(c(84)(m))
-        scoremaps = sm.permute(0, 2, 3, 1).to(
-            torch.promote_types(sm.dtype, torch.float32)).contiguous()
-        outs = (raw_s8.contiguous(), raw_s16.contiguous(),
-                raw_s32.contiguous(), scoremaps)
-        if self.height_shard is not None:
-            outs = tuple(self.height_shard.gather(o) for o in outs)
+                x = c(1)(x)
+                skip1 = x                                 # 1/1, 32ch
+                x = c(2)(x)
+            x = x + c(4)(c(3)(x))
+            skip2 = x                                     # 1/2, 64ch
+            x = c(5)(x)
+            x = x + c(7)(c(6)(x))
+            x = x + c(9)(c(8)(x))
+            skip3 = x                                     # 1/4, 128ch
+            x = c(10)(x)
+            for i in range(8):
+                x = x + c(2 * i + 12)(c(2 * i + 11)(x))
+            skip4 = x                                     # 1/8, 256ch
+            x = c(27)(x)
+            for i in range(8):
+                x = x + c(2 * i + 29)(c(2 * i + 28)(x))
+            skip5 = x                                     # 1/16, 512ch
+            x = c(44)(x)
+            for i in range(4):
+                x = x + c(2 * i + 46)(c(2 * i + 45)(x))
+
+        with span("heads"):
+            # ---- head 1: stride 32 ----
+            for i in range(53, 58):
+                x = c(i)(x)
+            raw_s32 = self._head(c(59)(c(58)(x)), a)
+            # ---- head 2: stride 16 ----
+            x = self._up_concat_cbn(61, skip5, c(60)(x))
+            for i in range(62, 66):
+                x = c(i)(x)
+            raw_s16 = self._head(c(67)(c(66)(x)), a)
+            # ---- head 3: stride 8 ----
+            x = self._up_concat_cbn(69, skip4, c(68)(x))
+            for i in range(70, 74):
+                x = c(i)(x)
+            raw_s8 = self._head(c(75)(c(74)(x)), a)
+
+        with span("mask_decoder"):
+            # ---- stride 8 -> cfg.mask_stride score maps ----
+            m = self._up_concat_cbn(77, skip3, c(76)(x))
+            m = c(78)(m)
+            if cfg.mask_stride == 4:
+                sm = c(79)(m)
+            else:
+                m = self._up_concat_cbn(80, skip2, c(79)(m))
+                m = c(81)(m)
+                if cfg.mask_stride == 2:
+                    sm = c(82)(m)
+                else:
+                    m = self._up_concat_cbn(83, skip1, c(82)(m))
+                    sm = c(85)(c(84)(m))
+            scoremaps = sm.permute(0, 2, 3, 1).to(
+                torch.promote_types(sm.dtype, torch.float32)).contiguous()
+            outs = (raw_s8.contiguous(), raw_s16.contiguous(),
+                    raw_s32.contiguous(), scoremaps)
+            if self.height_shard is not None:
+                outs = tuple(self.height_shard.gather(o) for o in outs)
         return outs

@@ -22,8 +22,8 @@ is an exact 0 (the gather path's sigmoid maps it to 0.5).  With
 Each wrapper (K1's ``custom_ops.assemble_masks_batch_cuda``,
 ``assemble_bwd_cuda``, ``extract_planes_cuda``) launches its kernel for
 CUDA tensors and runs its plain PyTorch version only for CPU tensors;
-anything else raises.
-Its ``launches`` attribute counts kernel launches.  K1's wrapper and
+anything else raises; each launch counts as ``kernel.k1``, ``kernel.k3``
+or ``kernel.k4`` (``utils/profiling.py``).  K1's wrapper and
 plain version live in ``ops.custom_ops``, where K1 is the custom
 operator ``dis_yolo::assemble_masks`` (in all three modes), so that an
 exported serving graph holds it.
@@ -38,6 +38,7 @@ import torch
 from dis_yolo_tpu_torch.ops import _build, custom_ops
 from dis_yolo_tpu_torch.ops.custom_ops import MAX_K, check_f32, on_cpu
 from dis_yolo_tpu_torch.ops.mask_assembly import assemble_bwd_plain
+from dis_yolo_tpu_torch.utils.profiling import count
 
 __all__ = ("MAX_K", "MAX_ROIS", "extract_planes_plain",
            "extract_planes_cuda", "assemble_masks_cuda", "assemble_bwd_cuda",
@@ -77,11 +78,8 @@ def extract_planes_cuda(sm2d: torch.Tensor, k: int) -> torch.Tensor:
         err = fn(sm2d.data_ptr(), out.data_ptr(), bsz, s, k * k,
                  int(sm2d.dtype == torch.bfloat16), stream)
     _build.check(err, "extract kernel launch")
-    extract_planes_cuda.launches += 1
+    count("kernel.k4")
     return out
-
-
-extract_planes_cuda.launches = 0
 
 
 def assemble_masks_cuda(scoremap: torch.Tensor, boxes_norm: torch.Tensor,
@@ -131,11 +129,8 @@ def assemble_bwd_cuda(boxes_px: torch.Tensor, g: torch.Tensor,
         err = fn(boxes_px.data_ptr(), g.data_ptr(), out.data_ptr(), bsz, r, s,
                  k, stream)
     _build.check(err, "assembly backward kernel launch")
-    assemble_bwd_cuda.launches += 1
+    count("kernel.k3")
     return out
-
-
-assemble_bwd_cuda.launches = 0
 
 
 class _AssembleTrainable(torch.autograd.Function):

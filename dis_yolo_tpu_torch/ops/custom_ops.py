@@ -6,8 +6,10 @@ Each operator has three registrations:
 
   * CUDA: checks dtype, layout and alignment, launches the hand-written
     kernel (``csrc/assembly.cu``, ``csrc/nms.cu``, through ``ctypes``)
-    on the current stream and counts the launch.  A build or launch error
-    raises; nothing gives way to the plain version on CUDA;
+    on the current stream and counts the launch (the counters
+    ``kernel.k1`` and ``kernel.k2`` of ``utils/profiling.py``).  A build
+    or launch error raises; nothing gives way to the plain version on
+    CUDA;
   * CPU: the kernel's plain PyTorch version;
   * fake: the output's exact shape and dtype (``[B,D,S,S]`` float32,
     ``[B,max_det]`` int64), so ``torch.export`` records each call as one
@@ -15,8 +17,8 @@ Each operator has three registrations:
 
 The wrappers ``assemble_masks_batch_cuda`` and ``nms_cuda`` check shapes
 and placement and call the operators, so eager code and an exported
-graph take the same path, and the launch counters (each wrapper's
-``launches`` attribute) count the launches of a loaded artifact too.
+graph take the same path, and the launch counters count the launches of
+a loaded artifact too.
 ``ops.cuda_assembly`` calls K1's wrapper for the single-image
 assembly and the training forward.  A program that loads an artifact
 (``export.load_artifact``) needs this module imported and nothing else
@@ -29,6 +31,7 @@ import torch
 
 from dis_yolo_tpu_torch.ops import _build
 from dis_yolo_tpu_torch.ops.mask_assembly import _assemble_px
+from dis_yolo_tpu_torch.utils.profiling import count
 
 MAX_K = 16              # K1, K3, K4: k x k bins
 NMS_MAX_K = 1024        # K2: candidates per image
@@ -111,7 +114,7 @@ def _assemble_masks_op(scoremaps: torch.Tensor, boxes: torch.Tensor, k: int,
                  bsz, d, s, k, int(apply_sigmoid), int(pixel_boxes),
                  int(planes), stream)
     _build.check(err, "assembly kernel launch")
-    assemble_masks_batch_cuda.launches += 1
+    count("kernel.k1")
     return out
 
 
@@ -146,8 +149,6 @@ def assemble_masks_batch_cuda(scoremaps: torch.Tensor,
                                              planes)
 
 
-assemble_masks_batch_cuda.launches = 0
-
 
 # ------------------------------------------------------------------ K2: NMS
 @torch.library.custom_op("dis_yolo::nms", mutates_args=(),
@@ -175,7 +176,7 @@ def _nms_op(boxes: torch.Tensor, scores: torch.Tensor,
                  valid.data_ptr(), out.data_ptr(), bsz, k, max_det,
                  float(iou_thresh), stream)
     _build.check(err, "nms kernel launch")
-    nms_cuda.launches += 1
+    count("kernel.k2")
     return out
 
 
@@ -221,5 +222,3 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     return torch.ops.dis_yolo.nms(boxes, scores, classids, valid, max_det,
                                   float(iou_thresh))
 
-
-nms_cuda.launches = 0

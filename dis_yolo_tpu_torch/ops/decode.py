@@ -12,6 +12,7 @@ from typing import List, NamedTuple, Sequence
 import torch
 
 from dis_yolo_tpu_torch.config import DISYoloConfig
+from dis_yolo_tpu_torch.utils.profiling import count
 
 
 class ScalePrediction(NamedTuple):
@@ -54,6 +55,9 @@ def decode_scale(raw: torch.Tensor, scale_idx: int, cfg: DISYoloConfig,
     net_factor = torch.tensor([net_w, net_h], dtype=torch.float32, device=dev)
     anchors = torch.as_tensor(
         cfg.anchors_array()[a * scale_idx: a * scale_idx + a], device=dev)
+    if dev.type == "cuda":
+        # the three host values above, each copied with a stream sync
+        count("sync.decode", 3)
 
     box_xy = (cell_offsets(grid_h, grid_w, dev) + pred_cxy) / grid_factor
     box_wh = torch.exp(pred_twh) * anchors[None, None, None] / net_factor

@@ -24,9 +24,12 @@ alike.  They are called as operators (``while_loop_op``, ``cond_op``)
 with every tensor they read passed in, not through the public
 ``torch.cond``/``while_loop`` wrappers, which compile their branches
 with ``torch.compile`` on every eager call with new shapes.  Eagerly
-each still reads its predicate on the host: one device sync per sweep
-and one for the fallback.  Neither supports autograd; every caller runs
-NMS under ``torch.no_grad`` (the train step's proposals too).
+each still reads its predicate on the host: one device sync per sweep,
+one for the loop's first test (two when it loops) and one for the
+fallback, counted as ``sync.nms_loop`` and ``sync.nms_fallback`` beside
+``nms.sweeps`` and ``nms.full_passes`` (``utils/profiling.py``).
+Neither supports autograd; every caller runs NMS under
+``torch.no_grad`` (the train step's proposals too).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from dis_yolo_tpu_torch.config import DISYoloConfig
 from dis_yolo_tpu_torch.ops import boxes as box_ops
 from dis_yolo_tpu_torch.ops.custom_ops import nms_cuda
 from dis_yolo_tpu_torch.ops.decode import ScalePrediction
+from dis_yolo_tpu_torch.utils.profiling import count, counters, span
 
 _NEG_INF = float("-inf")
 
@@ -123,10 +127,12 @@ def _sweep(kept, suppress, valid):
 
 
 def _sweep_changed(kept, prev, suppress, valid):
+    count("sync.nms_loop")          # the loop reads this on the host
     return torch.any(kept != prev)
 
 
 def _sweep_step(kept, prev, suppress, valid):
+    count("nms.sweeps")
     return _sweep(kept, suppress, valid), kept.clone()
 
 
@@ -152,9 +158,14 @@ def _fixpoint_nms(boxes: torch.Tensor, scores: torch.Tensor,
     valid = valid.bool()
     # carried (kept, prev); the body returns fresh tensors (the operator
     # rejects outputs that alias its inputs)
+    swept = counters().get("nms.sweeps", 0)
     kept, _ = while_loop_op(_sweep_changed, _sweep_step,
                             (_sweep(valid, suppress, valid), valid.clone()),
                             (suppress, valid))
+    if counters().get("nms.sweeps", 0) > swept:
+        # the eager operator reads the first predicate twice when it
+        # loops at all (its `if not` and its `while`)
+        count("sync.nms_loop")
 
     kk = min(max_det, k)
     top_score, top_idx = _top_k(torch.where(kept, scores, _NEG_INF), kk)
@@ -243,13 +254,16 @@ def filter_candidates(conf: torch.Tensor, class_prob: torch.Tensor,
     # batch-level fallback (JAX's lax.cond): the full pass runs only when
     # some image's shortlist fell short
     def full_pass(conf, class_prob, coord_cxcywh, windows, dets, shortfall):
-        full = _full_nms(conf, class_prob, coord_cxcywh, windows, cfg,
-                         obj_thresh)
-        return torch.where(shortfall[:, None, None], full, dets)
+        count("nms.full_passes")
+        with span("nms.full_pass"):
+            full = _full_nms(conf, class_prob, coord_cxcywh, windows, cfg,
+                             obj_thresh)
+            return torch.where(shortfall[:, None, None], full, dets)
 
     def keep(conf, class_prob, coord_cxcywh, windows, dets, shortfall):
         return dets.clone()
 
+    count("sync.nms_fallback")      # cond_op reads its predicate on the host
     return cond_op(torch.any(shortfall), full_pass, keep,
                    (conf, class_prob, coord_cxcywh, windows, dets, shortfall))
 

@@ -30,6 +30,8 @@ from typing import Tuple
 
 import torch
 
+from dis_yolo_tpu_torch.utils.profiling import count, span
+
 
 def letterbox_params(image_h: int, image_w: int, net_h: int, net_w: int
                      ) -> Tuple[float, float, float, float]:
@@ -51,6 +53,9 @@ def correct_boxes_device(boxes_norm: torch.Tensor, image_h: int, image_w: int,
                                                       net_h, net_w)
     y = torch.round((boxes_norm[..., [0, 2]] - y_off) / y_scale * image_h)
     x = torch.round((boxes_norm[..., [1, 3]] - x_off) / x_scale * image_w)
+    if boxes_norm.is_cuda:
+        # each list index above goes to the card with a stream sync
+        count("sync.paste", 2)
     y = torch.clamp(y, 0, image_h).to(torch.int32)
     x = torch.clamp(x, 0, image_w).to(torch.int32)
     return torch.stack([y[..., 0], x[..., 0], y[..., 1], x[..., 1]], dim=-1)
@@ -102,40 +107,40 @@ def _check_precision(t: torch.Tensor) -> None:
                            "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
-def paste_mask_device(mask: torch.Tensor, box_norm: torch.Tensor,
-                      box_px: torch.Tensor, image_h: int, image_w: int
-                      ) -> torch.Tensor:
-    """Sigmoid masks [..., S, S] + normalized boxes [..., 4] + original-px
-    boxes [..., 4] -> bool [..., image_h, image_w] (crop, bilinear resize,
-    > 0.5, paste), as rowM [H0,S] @ mask [S,S] @ colM.T [S,W0]."""
-    _check_precision(mask)
-    s = mask.shape[-1]
-    # crop window in score-map pixels
-    crop = torch.round(box_norm[..., :4].float() * s).to(torch.int32)
-    rowm = _axis_matrix(image_h, box_px[..., 0], box_px[..., 2],
-                        crop[..., 0], crop[..., 2], s)            # [..., H0, S]
-    colm = _axis_matrix(image_w, box_px[..., 1], box_px[..., 3],
-                        crop[..., 1], crop[..., 3], s)            # [..., W0, S]
-    val = torch.matmul(torch.matmul(rowm, mask), colm.transpose(-1, -2))
-    return val > 0.5
-
-
 def paste_masks_single(masks: torch.Tensor, dets: torch.Tensor,
                        image_h: int, image_w: int, net_size: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masks [..., D, S, S] sigmoid + dets [..., D, 6] -> (full-res bool
-    masks [..., D, image_h, image_w], valid [..., D]).
+    masks [..., D, image_h, image_w], valid [..., D]): crop, bilinear
+    resize, > 0.5 and paste as rowM [H0,S] @ mask [S,S] @ colM.T [S,W0],
+    in two spans, ``paste.taps`` and ``paste.gemm``
+    (``utils/profiling.py``).
 
     Validity drops zero-score padding rows and boxes degenerate in
     original pixels.
     """
-    box_px = correct_boxes_device(dets[..., :4], image_h, image_w,
-                                  net_size, net_size)
-    valid = (dets[..., 5] > 0.0) & (
-        (box_px[..., 2] - box_px[..., 0]) * (box_px[..., 3] - box_px[..., 1])
-        > 0)
-    full = paste_mask_device(masks, dets[..., :4], box_px, image_h, image_w)
-    return full & valid[..., None, None], valid
+    with span("paste.taps"):
+        box_px = correct_boxes_device(dets[..., :4], image_h, image_w,
+                                      net_size, net_size)
+        valid = (dets[..., 5] > 0.0) & (
+            (box_px[..., 2] - box_px[..., 0])
+            * (box_px[..., 3] - box_px[..., 1]) > 0)
+        s = masks.shape[-1]
+        # crop window in score-map pixels
+        crop = torch.round(dets[..., :4].float() * s).to(torch.int32)
+        rowm = _axis_matrix(image_h, box_px[..., 0], box_px[..., 2],
+                            crop[..., 0], crop[..., 2], s)    # [..., H0, S]
+        colm = _axis_matrix(image_w, box_px[..., 1], box_px[..., 3],
+                            crop[..., 1], crop[..., 3], s)    # [..., W0, S]
+    with span("paste.gemm"):
+        _check_precision(masks)
+        full = torch.matmul(torch.matmul(rowm, masks),
+                            colm.transpose(-1, -2)) > 0.5
+        # the float32 products and the tap matrices are freed before the
+        # masking allocates its output: they set the paste's peak memory
+        del rowm, colm
+        full = full & valid[..., None, None]
+    return full, valid
 
 
 def merged_semantic_single(full_masks: torch.Tensor, classids: torch.Tensor,
@@ -157,9 +162,11 @@ def merged_semantic_single(full_masks: torch.Tensor, classids: torch.Tensor,
 def paste_masks_batch(masks: torch.Tensor, dets: torch.Tensor,
                       image_h: int, image_w: int, net_size: int):
     """[B,D,S,S] + [B,D,6] -> (bool [B,D,H0,W0], valid [B,D],
-    semantic [B,H0,W0] uint8)."""
+    semantic [B,H0,W0] uint8); the semantic map is the span
+    ``paste.semantic``."""
     full, valid = paste_masks_single(masks, dets, image_h, image_w, net_size)
-    sem = merged_semantic_single(full, dets[..., 4], valid)
+    with span("paste.semantic"):
+        sem = merged_semantic_single(full, dets[..., 4], valid)
     return full, valid, sem
 
 

@@ -1,70 +1,123 @@
-"""Profiling hooks (the counterpart of ``dis_yolo_tpu/utils/profiling.py``):
+"""The port's spans and counters, and its profiler window (the counterpart
+of ``dis_yolo_tpu/utils/profiling.py``).
 
-  * ``trace(logdir)``: a ``torch.profiler`` window (CPU, and the card's
-    kernels where there is one), written to ``logdir/trace.json`` for
-    Perfetto or ``chrome://tracing``;
-  * ``chain_scan_time``: the device time of one call of ``body``, from N
-    data-dependent calls between two CUDA events (each call's input
-    depends on the previous output, so none can be skipped or overlap),
-    the median over repeats, in ms per call.  On the CPU the same chain
-    is timed with the host clock.
+  * ``span(name)``: a ``torch.profiler.record_function`` range named
+    ``dis_yolo.<name>`` around one layer of the program, so that a
+    profiler trace holds the program's layers beside the card's kernels,
+    copies and memsets, on one clock.  Spans are off unless turned on
+    (``tracing()``, ``trace(logdir)``); off, a span is one global read and
+    a shared no-op context.  Under ``torch.compile`` or ``torch.export``
+    tracing a span is always the no-op, so no graph holds a profiler
+    node.
+  * ``count(name, n)``: an always-on counter in a module-level registry
+    (``counters()``, ``reset_counters()``); nothing counts while
+    ``torch.compile`` or ``torch.export`` traces.
+  * ``trace(logdir)``: a ``torch.profiler`` window with spans on (CPU,
+    and the card's kernels where there is one), written to
+    ``logdir/trace.json`` for Perfetto or ``chrome://tracing``.
+
+Spans of the serving path (each ``dis_yolo.``-prefixed):
+
+  backbone          ``DISYolo.forward``: the input cast and permute,
+                    conv1-52
+  heads             conv53-75 and the three raw head outputs
+  mask_decoder      conv76-85, the score maps' permute and cast, the
+                    outputs' copies (and the height-shard gather)
+  decode            ``api.predict_from_outputs``: ``decode_all``
+  nms               ``nms.filter_detections``: scores, shortlist, NMS
+                    engine, the fallback
+  nms.full_pass     the fallback's full pass, when it runs (in ``nms``)
+  box_drop          the degenerate-box drop
+  assemble          K1 (or the gather route)
+  paste.taps        ``paste.paste_masks_batch``: boxes to original
+                    pixels, validity, the two interpolation matrices
+  paste.gemm        the two products, ``> 0.5`` and the validity mask
+  paste.semantic    the per-class semantic map
+
+The three forward spans tile ``DISYolo.forward``; ``decode``, ``nms``,
+``box_drop`` and ``assemble`` tile ``predict_from_outputs``; the three
+paste spans tile ``paste_masks_batch``.
+
+Counters:
+
+  nms.sweeps          fixpoint NMS sweeps run
+  nms.full_passes     fallback full passes run
+  sync.nms_loop       the fixpoint loop's predicate reads on the host
+  sync.nms_fallback   the fallback predicate's read on the host
+  sync.decode         host values copied to the card in ``decode``, each
+                      with a stream sync (on CUDA)
+  sync.paste          list indices copied to the card in
+                      ``paste.correct_boxes_device`` (on CUDA)
+  kernel.k1 .. k4     launches of K1 (assembly), K2 (NMS), K3 (assembly
+                      backward), K4 (channel extraction)
+
+Each ``sync.*`` count is one wait of the host for the card's stream:
+with the driver's fetch of the results they are every host sync of a
+serving batch.  On the CPU NMS's reads are counted too.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable
+from typing import Dict
 
-import numpy as np
 import torch
+
+_ON = False
+_NOOP = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
+
+
+def _traced() -> bool:
+    """True while ``torch.compile`` or ``torch.export`` traces."""
+    return torch.compiler.is_compiling()
+
+
+def span(name: str):
+    """A context manager: ``record_function("dis_yolo." + name)`` while
+    spans are on, else the shared no-op."""
+    if not _ON or _traced():
+        return _NOOP
+    return torch.profiler.record_function("dis_yolo." + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    if not _traced():
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter."""
+    return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def tracing(on: bool = True):
+    """Turn spans on (or off) for the block."""
+    global _ON
+    before, _ON = _ON, on
+    try:
+        yield
+    finally:
+        _ON = before
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block; yields the ``torch.profiler.profile`` object."""
+    """Profile the block with spans on; yields the
+    ``torch.profiler.profile`` object."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with tracing(), profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def chain_scan_time(body: Callable, x0: torch.Tensor, n: int = 20,
-                    repeats: int = 3, args: tuple = ()) -> float:
-    """Median ms per call of ``body(x, *args)`` over chains of ``n``
-    calls, after one warm chain.  A tiny multiple of each output's sum is
-    folded into the next call's input (in the input's dtype), so every
-    call depends on the one before."""
-    cuda = x0.is_cuda
-
-    def chain():
-        x = x0
-        for _ in range(n):
-            out = body(x, *args)
-            if isinstance(out, (tuple, list)):
-                out = out[0]
-            x = x0 + (out.float().sum() * 1e-20).to(x0.dtype)
-        return x
-
-    chain()
-    times = []
-    for _ in range(repeats):
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            chain()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            chain()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times)) / n

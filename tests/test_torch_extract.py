@@ -20,6 +20,7 @@ from dis_yolo_tpu_torch.ops.cuda_assembly import (assemble_masks_cuda,
                                                   extract_planes_cuda,
                                                   extract_planes_plain)
 from dis_yolo_tpu_torch.ops.custom_ops import assemble_masks_batch_cuda
+from dis_yolo_tpu_torch.utils.profiling import counters
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,9 +72,9 @@ def test_extract_plain_matches_pallas(s, k, dtype):
                                        k, interpret=True)) for sm in sms]
     assert all(w.dtype == np.float32 for w in want)
     sm2d = torch.stack([to_torch(sm).reshape(s, s * k * k) for sm in sms])
-    before = extract_planes_cuda.launches
+    before = counters().get("kernel.k4", 0)
     got = extract_planes_cuda(sm2d, k)
-    assert extract_planes_cuda.launches == before
+    assert counters().get("kernel.k4", 0) == before
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, k * k, s, s)
     np.testing.assert_array_equal(got.numpy(), np.stack(want))
     np.testing.assert_array_equal(extract_planes_plain(sm2d[:1], k).numpy(),

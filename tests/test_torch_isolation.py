@@ -19,6 +19,7 @@ from dis_yolo_tpu_torch.ops.custom_ops import (assemble_masks_batch_cuda,
                                                nms_cuda)
 from dis_yolo_tpu_torch.parallel.sharding import make_mesh, make_mesh_2d
 from dis_yolo_tpu_torch.train import train_step
+from dis_yolo_tpu_torch.utils.profiling import counters
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -274,9 +275,9 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
 
     sm = torch.zeros((1, 8, 8, 9))
     bx = torch.zeros((1, 3, 4))
-    before = assemble_masks_batch_cuda.launches
+    before = counters().get("kernel.k1", 0)
     assert assemble_masks_batch_cuda(sm, bx, 3).shape == (1, 3, 8, 8)
-    assert assemble_masks_batch_cuda.launches == before
+    assert counters().get("kernel.k1", 0) == before
     for args in ((sm.to("meta"), bx), (sm, bx.to("meta")),
                  (sm.to("meta"), bx.to("meta"))):
         with pytest.raises(ValueError, match="CUDA device"):
@@ -285,9 +286,9 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
         assemble_masks_batch_cuda(torch.zeros((1, 8, 8, 4)), bx, 3)
 
     g = torch.zeros((1, 3, 8, 8))
-    before = assemble_bwd_cuda.launches
+    before = counters().get("kernel.k3", 0)
     assert assemble_bwd_cuda(bx, g, 3).shape == (1, 8, 8, 9)
-    assert assemble_bwd_cuda.launches == before
+    assert counters().get("kernel.k3", 0) == before
     for args in ((bx.to("meta"), g), (bx, g.to("meta")),
                  (bx.to("meta"), g.to("meta"))):
         with pytest.raises(ValueError, match="CUDA device"):
@@ -302,9 +303,9 @@ def test_cuda_wrappers_never_fall_back(monkeypatch):
     scores = torch.zeros((1, 16))
     classes = torch.zeros((1, 16), dtype=torch.int32)
     valid = torch.ones((1, 16), dtype=torch.bool)
-    before = nms_cuda.launches
+    before = counters().get("kernel.k2", 0)
     assert nms_cuda(boxes, scores, classes, valid, 5, 0.3).shape == (1, 5)
-    assert nms_cuda.launches == before
+    assert counters().get("kernel.k2", 0) == before
     with pytest.raises(ValueError, match="CUDA device"):
         nms_cuda(boxes.to("meta"), scores, classes, valid, 5, 0.3)
     with pytest.raises(ValueError, match="K <= 1024"):
@@ -322,25 +323,25 @@ def test_extract_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
 
     sm2d = torch.zeros((2, 8, 8 * 9), dtype=torch.bfloat16)
-    before = extract_planes_cuda.launches
+    before = counters().get("kernel.k4", 0)
     out = extract_planes_cuda(sm2d, 3)
     assert out.shape == (2, 9, 8, 8) and out.dtype == torch.float32
-    assert extract_planes_cuda.launches == before
+    assert counters().get("kernel.k4", 0) == before
     with pytest.raises(ValueError, match="CUDA device"):
         extract_planes_cuda(sm2d.to("meta"), 3)
     with pytest.raises(ValueError, match=r"\[B,S,S\*9\]"):
         extract_planes_cuda(torch.zeros((2, 8, 8 * 4)), 3)
     sm = torch.zeros((8, 8, 9))
     bx = torch.zeros((3, 4))
-    launches = (extract_planes_cuda.launches,
-                assemble_masks_batch_cuda.launches)
+    launches = (counters().get("kernel.k4", 0),
+                counters().get("kernel.k1", 0))
     for use_extract in (False, True):
         assert assemble_masks_cuda(sm, bx, 3,
                                    use_extract=use_extract).shape == (3, 8, 8)
         with pytest.raises(ValueError, match="CUDA device"):
             assemble_masks_cuda(sm.to("meta"), bx, 3, use_extract=use_extract)
-    assert (extract_planes_cuda.launches,
-            assemble_masks_batch_cuda.launches) == launches
+    assert (counters().get("kernel.k4", 0),
+            counters().get("kernel.k1", 0)) == launches
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source():

@@ -1,5 +1,5 @@
-"""The port's training loop on the CPU: ``train/solver.py``, ``cli.py``
-and the ``stop_stage`` probe of ``models/dis_yolo.py``, at 64 px.
+"""The port's training loop on the CPU: ``train/solver.py`` and
+``cli.py``, at 64 px.
 
   * a 4-step stage-1 Solver with ``save_iter=2`` writes its metric rows,
     checkpoints, ``best.json`` and validation history;
@@ -10,8 +10,6 @@ and the ``stop_stage`` probe of ``models/dis_yolo.py``, at 64 px.
     Solver's ``validate`` (float32; the detection threshold set between
     two candidate scores, as ``tests/test_torch_sweep.py`` does, and the
     ground truth every second detection so that 0 < mAP < 1);
-  * every ``stop_stage`` cut equals JAX's within the forward's float32
-    tolerance;
   * ``cli.main(["train", ..., "--device", "cpu"])`` runs 2 steps, and with
     ``--device-corpus --steps-per-dispatch 2`` one block of 2; the flags
     not ported exit with a clear error;
@@ -35,7 +33,6 @@ import torch
 from dis_yolo_tpu.config import DISYoloConfig as JaxConfig
 from dis_yolo_tpu.eval import map_eval as jax_map_eval
 from dis_yolo_tpu.models import api as jax_api
-from dis_yolo_tpu.models.dis_yolo import DISYolo as JaxDISYolo
 from dis_yolo_tpu.train import train_step as jax_ts
 from dis_yolo_tpu.train.solver import Solver as JaxSolver
 from dis_yolo_tpu_torch import cli
@@ -45,7 +42,6 @@ from dis_yolo_tpu_torch.data.dataset import DefectTrainData
 from dis_yolo_tpu_torch.data.val_data import DefectValData, letterbox_image
 from dis_yolo_tpu_torch.eval import map_eval, sweep
 from dis_yolo_tpu_torch.models import api
-from dis_yolo_tpu_torch.models.dis_yolo import STOP_STAGES, DISYolo
 from dis_yolo_tpu_torch.models.weights import state_dict_from_flax
 from dis_yolo_tpu_torch.train import checkpoint as ckpt
 from dis_yolo_tpu_torch.train import train_step as ts
@@ -248,36 +244,6 @@ def test_validate_matches_jax_solver(split, tmp_path, variables):
     assert 0.0 < want["mAP"] < 1.0
     for got in results:
         assert got == want
-
-
-@pytest.fixture(scope="module")
-def bridged64(variables):
-    """The port's float32 model with the JAX weights (``stop_stage`` is
-    set per case on this one instance)."""
-    model = DISYolo(DISYoloConfig(image_size=64,
-                                  compute_dtype="float32")).eval()
-    model.load_state_dict(state_dict_from_flax(variables))
-    return model
-
-
-@pytest.mark.parametrize("stage", STOP_STAGES)
-def test_stop_stage_matches_jax(stage, variables, bridged64):
-    kw = dict(image_size=64, compute_dtype="float32")
-    model = bridged64
-    model.stop_stage = stage
-    images = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
-    with torch.no_grad():
-        got = model(torch.from_numpy(images))
-    model.stop_stage = None
-    want = JaxDISYolo(JaxConfig(**kw), stop_stage=stage).apply(
-        jax.tree.map(jnp.asarray, variables), jnp.asarray(images), train=False)
-    assert len(got) == len(want) == 1
-    w = np.asarray(want[0])
-    assert got[0].shape == w.shape and got[0].dtype == torch.float32
-    np.testing.assert_allclose(got[0].numpy(), w, rtol=1e-4,
-                               atol=1e-4 * max(1.0, float(np.abs(w).max())))
-    with pytest.raises(ValueError, match="stop_stage"):
-        DISYolo(DISYoloConfig(**kw), stop_stage="mask")
 
 
 def test_cli_train_two_steps_and_refusals(split, out_dir):
