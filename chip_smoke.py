@@ -34,7 +34,13 @@ Phases (any failure exits non-zero before the last line is printed):
      on input views one element into their storage (off the 16-byte
      grid); K1 on channel planes bit-exact against K1 on the NHWC map,
      and ``assemble_masks_cuda`` with ``use_extract`` (K4 then K1)
-     against its default route;
+     against its default route; K5 (the mask paste) against the dense
+     route (cuBLAS's float32 products), exactly: masks, valid flags and
+     semantic map at the four serving shapes (S=288/576, 720x960 and
+     960x720, B=8, D=30) and with edge boxes (the map's edges, 1-pixel
+     boxes, crops that round to nothing, class 255, an image of padding
+     rows), with its device time beside its bound and the dense route's
+     (``--out`` key ``k5_paste``);
   3. the serving slice: the full-width 576^2 model (Darknet-53, 3 heads,
      stride-2 decoder, bf16 compute, seeded random weights) through
      ``predict`` + ``paste_masks_batch`` at B=1 and B=2, with the
@@ -365,11 +371,11 @@ def kernel_kind(name: str) -> str:
 
 
 def kernel_launches(profiling, *kernels) -> dict:
-    """Launches so far of ``kernels`` ("K1" .. "K4"; all four by default),
+    """Launches so far of ``kernels`` ("K1" .. "K5"; all five by default),
     from the port's ``kernel.k*`` counters."""
     c = profiling.counters()
     return {k: c.get(f"kernel.k{k[1:]}", 0)
-            for k in kernels or ("K1", "K2", "K3", "K4")}
+            for k in kernels or ("K1", "K2", "K3", "K4", "K5")}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -2367,6 +2373,137 @@ def check_assembly_edges(torch, custom_ops, asm_fn, gen, b, s, k, d):
     return err
 
 
+# K5, the mask paste: the four serving shapes (mask size x photo size) at
+# B=8, D=30 on a 576 input
+PASTE_SHAPES = [(s, hw) for s in (288, 576) for hw in ((720, 960), (960, 720))]
+
+
+def paste_dets(torch, gen, b, d, h0, w0, net, edges=False):
+    """[b,d,6] detections (normalized letterboxed yxyx, class, score) on a
+    ``h0`` x ``w0`` photo letterboxed to ``net``: random boxes inside the
+    photo's window, classes 0-2, a fifth of the rows padding (score 0).
+    ``edges`` puts in every image the whole window, boxes on its bottom
+    and right edges, a 1-pixel box, an inverted box and six boxes of 1-3
+    photo pixels a side (some crops round to no score-map pixel), classes
+    255, 300 and -1, and in the last image only padding rows."""
+    sc = min(net / h0, net / w0)
+    nh, nw = int(h0 * sc), int(w0 * sc)
+    oy, ox = (net - nh) // 2 / net, (net - nw) // 2 / net
+    fy, fx = nh / net, nw / net
+    u = torch.rand((b, d, 4), generator=gen)
+    y = torch.sort(u[..., 0::2], -1).values * fy + oy
+    x = torch.sort(u[..., 1::2], -1).values * fx + ox
+    boxes = torch.stack([y[..., 0], x[..., 0], y[..., 1], x[..., 1]], -1)
+    cls = torch.randint(0, 3, (b, d, 1), generator=gen).float()
+    score = torch.rand((b, d, 1), generator=gen) * 0.9 + 0.05
+    score[:, d - d // 5:] = 0.0
+    if edges:
+        r, c = (int(v) for v in torch.randint(1, min(h0, w0) - 4, (2,), generator=gen))
+        py, px = fy / h0, fx / w0          # one photo pixel, normalized
+        boxes[:, :6] = torch.tensor([
+            [oy, ox, oy + fy, ox + fx],
+            [oy + fy / 2, ox + fx / 3, oy + fy, ox + fx],
+            [oy + r * py, ox + c * px, oy + (r + 1) * py, ox + (c + 1) * px],
+            [oy + (h0 - 1) * py, ox, oy + fy, ox + 5 * px],
+            [oy + 0.7 * fy, ox + 0.2 * fx, oy + 0.2 * fy, ox + 0.9 * fx],
+            [oy, ox + (w0 - 1) * px, oy + fy, ox + fx]])
+        # boxes of 1-3 photo pixels a side: at S=288 one photo pixel is a
+        # third of a score-map pixel, so some crops round to no pixel
+        lo = torch.rand((b, 6, 2), generator=gen) * 0.9
+        side = torch.randint(1, 4, (b, 6, 2), generator=gen).float()
+        boxes[:, 6:12] = torch.stack([
+            oy + lo[..., 0] * fy, ox + lo[..., 1] * fx,
+            oy + lo[..., 0] * fy + side[..., 0] * py,
+            ox + lo[..., 1] * fx + side[..., 1] * px], -1)
+        cls[:, :3, 0] = torch.tensor([255.0, 300.0, -1.0])
+        score[:, :12] = 0.9
+        score[-1] = 0.0
+    return torch.cat([boxes, cls, score], -1)
+
+
+def paste_case(torch, custom_ops, gen, b, d, s, h0, w0, net=576, edges=False):
+    """(masks, dets) as the serving path makes them: K1's sigmoid masks of
+    random k=3 score maps at the detections' boxes."""
+    dets = paste_dets(torch, gen, b, d, h0, w0, net, edges).cuda()
+    sm = torch.randn((b, s, s, 9), generator=gen).cuda()
+    return custom_ops.assemble_masks_batch_cuda(sm, dets[..., :4].contiguous(), 3), dets
+
+
+def check_paste(torch, paste, custom_ops, profiling, gen, s, h0, w0, b=8, d=30,
+                seeds=1, edges=False, timed=False):
+    """K5 against the dense route (cuBLAS's float32 products) on the card,
+    exactly: the pasted masks, the validity flags and the semantic map of
+    ``paste.paste_masks_batch`` (one K5 launch a call, no tap matrix
+    built) and the masks of ``paste_masks_single``, over ``seeds`` cases.
+    The record's ``max_abs_err`` is the largest difference of any
+    compared value.  With ``timed``, K5's device time by CUDA-graph
+    replays beside its bound (the bytes it has to move: all D rows'
+    booleans and the semantic map written, each valid box's rounded crop
+    of the mask read) and the dense route's."""
+    tag = f"S={s} {h0}x{w0} B={b} D={d}" + (" edge boxes" if edges else "")
+    dense_matrix = paste._axis_matrix
+    err = 0
+    for _ in range(seeds):
+        masks, dets = paste_case(torch, custom_ops, gen, b, d, s, h0, w0,
+                                 edges=edges)
+        valid, taps = paste.paste_taps(dets, s, h0, w0, 576)
+        cls = torch.clamp(dets[..., 4].to(torch.int32), 0, 255)
+        want, want_sem = paste.paste_masks_plain(masks, taps, valid, cls,
+                                                 h0, w0, True)
+        before = profiling.counters().get("kernel.k5", 0)
+        paste._axis_matrix = lambda *a: fail(
+            f"K5 {tag}: the CUDA route built a tap matrix")
+        try:
+            full, valid_k5, sem = paste.paste_masks_batch(masks, dets, h0, w0, 576)
+            single, _ = paste.paste_masks_single(masks, dets, h0, w0, 576)
+        finally:
+            paste._axis_matrix = dense_matrix
+        torch.cuda.synchronize()
+        need(profiling.counters().get("kernel.k5", 0) - before == 2,
+             f"K5 {tag}: not one launch a call")
+        need(bool(want.any()) or edges, f"K5 {tag}: nothing pasted")
+        for name, got, ref in (("masks", full, want), ("valid", valid_k5, valid),
+                               ("semantic map", sem, want_sem),
+                               ("single masks", single, want)):
+            need(torch.equal(got, ref), f"K5 {name} not exact ({tag}): "
+                 f"{int((got != ref).sum())} of {ref.numel()} differ")
+            err = max(err, int((got != ref).any()) if got.dtype == torch.bool
+                      else int((got.int() - ref.int()).abs().max()))
+    # valid rows whose crop rounds to no score-map pixel on some axis, and
+    # pixels painted by detection 0 (class 255, painted as 0)
+    no_crop = int((valid & ~(paste.axis_tables(taps, 0, h0)[3].any(-1)
+                             & paste.axis_tables(taps, 1, w0)[3].any(-1))).sum())
+    order = torch.arange(1, d + 1, dtype=torch.uint8,
+                         device=want.device)[None, :, None, None]
+    class255 = int(((want.to(torch.uint8) * order).amax(1) == 1).sum())
+    if edges:
+        need(not bool(valid[-1].any()) and not bool(full[-1].any())
+             and not bool(sem[-1].any()), f"K5 {tag}: padding image pasted")
+        need(class255 > 0 and (no_crop > 0 or s != 288),
+             f"K5 {tag}: edge cases missing: {class255} class-255 pixels, "
+             f"{no_crop} valid rows with no crop")
+    rec = {"shape": tag, "seeds": seeds, "pixels_set": int(want.sum()),
+           "valid_rows": int(valid.sum()), "valid_rows_no_crop": no_crop,
+           "class255_pixels": class255, "max_abs_err": err}
+    if timed:
+        boxes = paste.correct_boxes_device(dets[..., :4], h0, w0, 576, 576)
+        crop = torch.round(dets[..., :4] * s).clamp(0, s)
+        crop_px = ((crop[..., 2] - crop[..., 0]).clamp_min(0)
+                   * (crop[..., 3] - crop[..., 1]).clamp_min(0) * valid)
+        nbytes = b * d * h0 * w0 + b * h0 * w0 + 4 * int(crop_px.sum())
+        inside = int(((boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+                      * valid).sum())
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 8 * inside)
+        rec["k5_ms"] = graph_ms(torch, lambda: custom_ops.paste_masks_cuda(
+            masks, taps, valid, cls, h0, w0, True))
+        rec["dense_ms"] = graph_ms(torch, lambda: paste.paste_masks_plain(
+            masks, taps, valid, cls, h0, w0, True), n=2, reps=5)
+    print(f"K5 {tag}: masks, valid and semantic map exact against the dense "
+          f"route over {seeds} case(s); "
+          + json.dumps({k: v for k, v in rec.items() if k != "shape"}), flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # the data-parallel phase (after the device-data phase): ranks in worker
 # processes (``chip_smoke.py --dp-worker SPEC``), each on its card
@@ -2498,7 +2635,8 @@ def dp_sweep(np, torch, m, mesh, dev, root, thresh, size):
     the host and device_score routes (``run_split``, deterministic
     algorithms), on ``mesh`` at the global batch, or in one process at
     a rank's batch (the same images in each batch).  Returns per route
-    the boxes [N,D,6] and the mAP."""
+    the boxes [N,D,6], the mAP and the K5 launches (the device_score
+    route pastes on the card)."""
     b = DP_GLOBAL_BATCH if mesh is not None else DP_GLOBAL_BATCH // 2
     cfg = m.DISYoloConfig(dataset=root, image_size=size, test_size=size,
                           batch_size=b, obj_threshold=thresh)
@@ -2508,13 +2646,16 @@ def dp_sweep(np, torch, m, mesh, dev, root, thresh, size):
     out = {}
     with deterministic(torch):
         for route in ("host", "device_score"):
+            k5_before = kernel_launches(m.profiling, "K5")["K5"]
             det, t = m.run_split(cfg, model, images, names, windows, mesh=mesh,
                                  device=dev, gt_sizes=ev.gt_sizes,
                                  gt_records=ev.gt_masks, want_semantic=False,
                                  device_score=route == "device_score")
             res = ev.evaluate_detections(det)
             out[route] = {"boxes": np.stack([d["boxes"] for d in det]),
-                          "mAP": float(res["mAP"]), "predict_s": t}
+                          "mAP": float(res["mAP"]), "predict_s": t,
+                          "launches_K5": kernel_launches(m.profiling, "K5")["K5"]
+                          - k5_before}
     return out
 
 
@@ -3066,9 +3207,21 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
                 f"{[len(k) for k in keep(got)]} vs "
                 f"{[len(k) for k in keep(want['boxes'])]}, max |diff| "
                 f"{float(np.abs(got - want['boxes']).max())})")
+    # the paste of the device_score route is K5 on the card, in every
+    # rank and in one process; the host route pastes on the host
+    k5_sweep = {route: [r["sweep"][route]["launches_K5"] for r in recs]
+                for route in ref_sweep}
+    for route, want in ref_sweep.items():
+        on_card = dev.type == "cuda" and route == "device_score"
+        need(all((n > 0) == on_card for n in
+                 k5_sweep[route] + [want["launches_K5"]]),
+             f"parallel sweep {route}: K5 launches {k5_sweep[route]} by rank, "
+             f"{want['launches_K5']} in one process")
     gloo.update(worker_wall_s=wall, ranks=recs,
                 sweep={route: {"mAP": w["mAP"], "kept": int((w["boxes"][..., 5] > 0).sum()),
-                               "one_process_predict_s": w["predict_s"]}
+                               "one_process_predict_s": w["predict_s"],
+                               "launches_K5_by_rank": k5_sweep[route],
+                               "launches_K5_one_process": w["launches_K5"]}
                        for route, w in ref_sweep.items()})
     rec["gloo_2rank_one_card"] = gloo
     sp = sp_compare(np, results, ref_sp, ref_sp_arrays)
@@ -3079,7 +3232,8 @@ def parallel_phase(np, torch, root, smi_line, size=576, device="cuda"):
                 "K2": 0,
                 "K3": sum(r[p]["launches"]["K3"] for r in recs
                           for p in ("f32_stage2", "bf16_default", "spatial")),
-                "K4": 0}
+                "K4": 0,
+                "K5": sum(sum(n) for n in k5_sweep.values())}
     med = lambda xs: sorted(xs)[len(xs) // 2]
     print(f"parallel: spatial sp=2 on one card: predict ms per rank f32 "
           f"{[round(med(x['predict_f32']['ms']), 2) for x in sp['ranks']]} bf16 "
@@ -3273,6 +3427,13 @@ def main() -> None:
                      (1, 288, 3, 1), (2, 97, 5, 1)))
     for b, s, k in ((2, 288, 3), (1, 576, 3), (1, 64, 5), (1, 64, 7)):
         check_planes(torch, cuda_assembly, custom_ops, gen, b, s, k, 30, 3)
+    k5 = [check_paste(torch, paste, custom_ops, profiling, gen, s, h0, w0,
+                      edges=edges, timed=not edges)
+          for edges in (False, True) for s, (h0, w0) in PASTE_SHAPES]
+    # odd sides: K5's byte stores (a width not a multiple of 4) and a last
+    # group of rows short of 4
+    k5.append(check_paste(torch, paste, custom_ops, profiling, gen, 576, 375,
+                          499, b=2, edges=True))
     print(f"phase 2 done at {time.time() - t_start:.0f} s", flush=True)
 
     # ---- phase 3: the slice -------------------------------------------
@@ -3300,10 +3461,11 @@ def main() -> None:
     outs = {(b, k2): serve(model_k2 if k2 else model, b)
             for b in (1, 2) for k2 in (False, True)}
     torch.cuda.synchronize()
-    launches = kernel_launches(profiling, "K1", "K2", "K3")
+    launches = kernel_launches(profiling, "K1", "K2", "K3", "K5")
     print(f"main path launches: {launches}", flush=True)
-    need(launches["K1"] > 0 and launches["K2"] > 0,
-         f"a kernel of the path never launched: {launches}")
+    need(launches["K1"] > 0 and launches["K2"] > 0 and launches["K5"] == 4,
+         f"a kernel of the path never launched, or K5 not once a paste: "
+         f"{launches}")
     for b in (1, 2):
         ref = outs[(b, False)]
         for x, y in zip(ref, outs[(b, True)]):
@@ -3488,7 +3650,7 @@ def main() -> None:
             need(torch.equal(dflt, masks2[i]),
                  f"graph {g} image {i}: assemble_masks_cuda != predict's masks")
     torch.cuda.synchronize()
-    graph_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
+    graph_launches = kernel_launches(profiling)
     print(f"serving graphs path launches: {graph_launches}", flush=True)
     need(graph_launches["K1"] > 0 and graph_launches["K4"] > 0,
          f"a kernel of the serving graphs' path never launched: {graph_launches}")
@@ -3556,7 +3718,7 @@ def main() -> None:
     profiling.reset_counters()
     eval_record, eval_ctx = eval_phase(np, torch, em, cfg, model.state_dict())
     torch.cuda.synchronize()
-    eval_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
+    eval_launches = kernel_launches(profiling)
     print(f"eval path launches: {eval_launches}", flush=True)
     need(eval_launches["K1"] > 0 and eval_launches["K2"] > 0,
          f"a kernel of the eval path never launched: {eval_launches}")
@@ -3573,7 +3735,7 @@ def main() -> None:
     profiling.reset_counters()
     solver_record, solver_runs = solver_phase(np, torch, sol, sroot)
     torch.cuda.synchronize()
-    solver_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
+    solver_launches = kernel_launches(profiling)
     print(f"Solver path launches: {solver_launches}", flush=True)
     need(solver_launches["K1"] > 0 and solver_launches["K3"] > 0,
          f"a kernel of the Solver's path never launched: {solver_launches}")
@@ -3592,7 +3754,7 @@ def main() -> None:
     profiling.reset_counters()
     dd_record.update(device_data_command(np, torch, dd, sroot))
     torch.cuda.synchronize()
-    dd_launches = kernel_launches(profiling, "K1", "K2", "K3", "K4")
+    dd_launches = kernel_launches(profiling)
     print(f"device-data path launches: {dd_launches}", flush=True)
     need(dd_launches["K1"] > 0 and dd_launches["K3"] > 0,
          f"a kernel of the device-data path never launched: {dd_launches}")
@@ -3979,6 +4141,13 @@ def main() -> None:
          **path_launches("K3"), "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "K5 mask paste", "route": "cuda",
+         "source": "dis_yolo_tpu_torch/csrc/paste.cu",
+         "replaces": None, **path_launches("K5"),
+         "max_abs_err": max(r["max_abs_err"] for r in k5),
+         "ms": k5[2]["k5_ms"], "plain_ms": k5[2]["dense_ms"],
+         "bound_ms": k5[2]["bound_ms"], "bound_by": k5[2]["bound_by"],
+         "library_ms": None},
         {"name": "K4 score-map channel extraction", "route": "cuda",
          "source": "dis_yolo_tpu_torch/csrc/extract.cu",
          "replaces": "dis_yolo_tpu/ops/pallas_assembly.py:233",
@@ -4022,6 +4191,7 @@ def main() -> None:
                        "ptxas": ptxas,
                        "k1_modes_and_sweep": k1_sweep,
                        "k2_sweep": k2_sweep, "k2_shape": k2_shape,
+                       "k5_paste": k5,
                        "launches_eval_path": eval_launches,
                        "eval_path": eval_record, "eval_sweep": eval_sweep,
                        "eval_scoring": eval_scoring,
@@ -4041,7 +4211,7 @@ def main() -> None:
                        "kernels": kernels},
                       f, indent=1)
     # checked last, so that a spill still leaves the run's measurements
-    for name in ("nms", "assembly"):
+    for name in ("nms", "assembly", "paste"):
         need(bool(ptxas[name]) and all(
             use.get("stack_frame") == 0 and use.get("spill_stores") == 0
             for use in ptxas[name].values()),

@@ -7,7 +7,7 @@ carries a hash of the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  ``-fmad=false`` is part of
 the kernels' contract: without it the compiler may contract a*b+c into
 one FMA and the grid-line and IoU roundings stop matching float32 on the
-CPU.
+CPU, and the paste's taps stop matching cuBLAS's float32 products.
 
 Nothing here runs at import time; the first kernel call builds.
 """
@@ -41,6 +41,9 @@ SIGNATURES: Dict[str, Tuple[str, tuple]] = {
     "nms": ("dis_nms", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P)),
     # in, out, batch, size, k*k, in_bf16, stream
     "extract": ("dis_extract_planes", (_P, _P, _I, _I, _I, _I, _P)),
+    # masks, i0, i1, w, inside, valid, cls, full, sem, batch, n_det, size,
+    # out_h, out_w, table length, stream
+    "paste": ("dis_paste_masks", (_P,) * 9 + (_I,) * 6 + (_P,)),
 }
 KERNELS = tuple(SIGNATURES)
 

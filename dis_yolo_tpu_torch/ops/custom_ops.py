@@ -1,24 +1,27 @@
 """K1 (mask assembly) and K2 (NMS), the two kernels of the serving graph,
-as ``torch.library`` custom operators: ``dis_yolo::assemble_masks`` and
-``dis_yolo::nms``.
+and K5 (the mask paste of ``ops/paste.py``), as ``torch.library`` custom
+operators: ``dis_yolo::assemble_masks``, ``dis_yolo::nms`` and
+``dis_yolo::paste_masks``.
 
 Each operator has three registrations:
 
   * CUDA: checks dtype, layout and alignment, launches the hand-written
-    kernel (``csrc/assembly.cu``, ``csrc/nms.cu``, through ``ctypes``)
-    on the current stream and counts the launch (the counters
-    ``kernel.k1`` and ``kernel.k2`` of ``utils/profiling.py``).  A build
-    or launch error raises; nothing gives way to the plain version on
-    CUDA;
-  * CPU: the kernel's plain PyTorch version;
+    kernel (``csrc/assembly.cu``, ``csrc/nms.cu``, ``csrc/paste.cu``,
+    through ``ctypes``) on the current stream and counts the launch (the
+    counters ``kernel.k1``, ``kernel.k2`` and ``kernel.k5`` of
+    ``utils/profiling.py``).  A build or launch error raises; nothing
+    gives way to the plain version on CUDA;
+  * CPU: the kernel's plain PyTorch version (K5's is the dense route of
+    ``ops/paste.py``, ``paste_masks_plain``, registered there);
   * fake: the output's exact shape and dtype (``[B,D,S,S]`` float32,
-    ``[B,max_det]`` int64), so ``torch.export`` records each call as one
-    node of the graph without running it.
+    ``[B,max_det]`` int64, ``[B,D,H0,W0]`` bool and ``[B,H0,W0]`` uint8),
+    so ``torch.export`` records each call as one node of the graph
+    without running it.
 
-The wrappers ``assemble_masks_batch_cuda`` and ``nms_cuda`` check shapes
-and placement and call the operators, so eager code and an exported
-graph take the same path, and the launch counters count the launches of
-a loaded artifact too.
+The wrappers ``assemble_masks_batch_cuda``, ``nms_cuda`` and
+``paste_masks_cuda`` check shapes and placement and call the operators,
+so eager code and an exported graph take the same path, and the launch
+counters count the launches of a loaded artifact too.
 ``ops.cuda_assembly`` calls K1's wrapper for the single-image
 assembly and the training forward.  A program that loads an artifact
 (``export.load_artifact``) needs this module imported and nothing else
@@ -26,6 +29,9 @@ of the package: it imports no model code.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -222,3 +228,90 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     return torch.ops.dis_yolo.nms(boxes, scores, classids, valid, max_det,
                                   float(iou_thresh))
 
+
+# --------------------------------------------------------------- K5: paste
+_PASTE_DTYPES = {"masks": torch.float32, "i0": torch.int32,
+                 "i1": torch.int32, "w": torch.float32, "inside": torch.bool,
+                 "valid": torch.bool, "cls": torch.int32}
+
+
+def _paste_outputs(masks: torch.Tensor, out_h: int, out_w: int,
+                   semantic: bool):
+    """Empty (full, sem) for ``dis_yolo::paste_masks``: sem is
+    [B,H0,W0] with ``semantic`` and [B,0,0] without."""
+    bsz, d = masks.shape[0], masks.shape[1]
+    full = masks.new_empty((bsz, d, out_h, out_w), dtype=torch.bool)
+    sem = masks.new_empty((bsz, out_h, out_w) if semantic else (bsz, 0, 0),
+                          dtype=torch.uint8)
+    return full, sem
+
+
+@torch.library.custom_op("dis_yolo::paste_masks", mutates_args=(),
+                         device_types="cuda")
+def paste_masks_op(masks: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
+                   w: torch.Tensor, inside: torch.Tensor, valid: torch.Tensor,
+                   cls: torch.Tensor, out_h: int, out_w: int, semantic: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    tensors = dict(masks=masks, i0=i0, i1=i1, w=w, inside=inside,
+                   valid=valid, cls=cls)
+    on_cpu("dis_yolo::paste_masks", tensors.values())
+    for name, t in tensors.items():
+        if t.dtype != _PASTE_DTYPES[name] or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous "
+                             f"{_PASTE_DTYPES[name]}, got {t.dtype} "
+                             f"contiguous={t.is_contiguous()}")
+    full, sem = _paste_outputs(masks, out_h, out_w, semantic)
+    bsz, d, s = masks.shape[0], masks.shape[1], masks.shape[-1]
+    fn = _build.load("paste")
+    with torch.cuda.device(masks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors.values()), full.data_ptr(),
+                 sem.data_ptr() if semantic else None, bsz, d, s, out_h,
+                 out_w, i0.shape[-1], stream)
+    _build.check(err, "paste kernel launch")
+    count("kernel.k5")
+    return full, sem
+
+
+@paste_masks_op.register_fake
+def _(masks, i0, i1, w, inside, valid, cls, out_h, out_w, semantic):
+    return _paste_outputs(masks, out_h, out_w, semantic)
+
+
+def paste_masks_cuda(masks: torch.Tensor, taps, valid: torch.Tensor,
+                     cls: torch.Tensor, out_h: int, out_w: int,
+                     semantic: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K5: masks [..., D, S, S] f32 (K1's output), ``taps`` the tap tables
+    (i0, i1 int32, w f32, inside bool) of ``paste.paste_taps``, each
+    [..., D, 2, L] with L >= max(out_h, out_w), valid [..., D] bool, cls
+    [..., D] int32 in [0, 255] -> (bool masks [..., D, out_h, out_w], the
+    semantic map [..., out_h, out_w] uint8 with ``semantic``, else None).
+    CPU tensors run the plain version (``paste.paste_masks_plain``,
+    registered by ``ops/paste.py``); other placements raise."""
+    if len(taps) != 4:
+        raise ValueError("paste_masks_cuda: taps must be the four tables "
+                         "(i0, i1, w, inside)")
+    lead, d, s = masks.shape[:-3], masks.shape[-3], masks.shape[-1]
+    n = taps[0].shape[-1]
+    shapes = {"masks": (masks, lead + (d, s, s)), "valid": (valid, lead + (d,)),
+              "cls": (cls, lead + (d,)),
+              **{f"taps[{i}]": (t, lead + (d, 2, n)) for i, t in enumerate(taps)}}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"paste_masks_cuda: {name} must be {want}, "
+                             f"got {tuple(t.shape)}")
+    if n < max(out_h, out_w):
+        raise ValueError(f"paste_masks_cuda: the tables hold {n} positions, "
+                         f"fewer than the photo's {out_h} x {out_w}")
+    on_cpu("paste_masks_cuda", (masks, *taps, valid, cls))
+    bsz = math.prod(lead)
+
+    def flat(t):
+        return t.reshape((bsz,) + t.shape[len(lead):]).contiguous()
+
+    full, sem = torch.ops.dis_yolo.paste_masks(
+        flat(masks), *map(flat, taps), flat(valid), flat(cls), out_h, out_w,
+        semantic)
+    full = full.reshape(lead + full.shape[1:])
+    return full, sem.reshape(lead + sem.shape[1:]) if semantic else None

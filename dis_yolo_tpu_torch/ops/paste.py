@@ -7,10 +7,15 @@ crop to the box (cv2 INTER_LINEAR half-pixel mapping, edge clamping),
 binarize at > 0.5 and paste; then the per-class semantic map, where later
 detections overwrite earlier ones.
 
-The resize keeps the JAX package's dense form: two interpolation matrices
-with two non-zero taps per row and two float32 matrix products.  The taps
-are exact, so the products need full float32: on CUDA this module refuses
-to run with TF32 matmuls allowed.
+Both routes share the tap tables (``paste_taps``: per output row and
+column, the two source indices, the weight and the inside flag, both axes
+in one set of operations).  On the CPU the resize keeps the JAX package's
+dense form (``paste_dense``): two interpolation matrices with two non-zero
+taps per row and two float32 matrix products, which need full float32
+(the route refuses TF32 matmuls on CUDA).  On CUDA kernel K5
+(``csrc/paste.cu``) reads the tables and computes the same bits per
+pixel, summing the taps as cuBLAS's float32 products sum them, with
+``> 0.5``, the validity mask and the semantic map in one pass.
 
 The scoring helpers of the device-scored evaluation sweep
 (``eval/sweep.py``) live here too: ``pack_mask_bits`` /
@@ -30,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from dis_yolo_tpu_torch.ops import custom_ops
 from dis_yolo_tpu_torch.utils.profiling import count, span
 
 
@@ -67,7 +73,8 @@ def _axis_taps(out_size: int, lo_px: torch.Tensor, hi_px: torch.Tensor,
 
     Returns (i0, i1, w, inside), each [..., out_size]: the absolute
     score-map indices of the two taps, the lerp weight of tap 1 and the
-    inside-box indicator.
+    inside-box indicator.  Every step is elementwise, so a position's taps
+    do not depend on what else is computed beside them.
     """
     pos = torch.arange(out_size, dtype=torch.int32, device=lo_px.device)
     lo, hi = lo_px[..., None], hi_px[..., None]
@@ -87,15 +94,13 @@ def _axis_taps(out_size: int, lo_px: torch.Tensor, hi_px: torch.Tensor,
     return i0, i1, w, inside & (crop_len > 0)
 
 
-def _axis_matrix(out_size: int, lo_px: torch.Tensor, hi_px: torch.Tensor,
-                 crop_lo: torch.Tensor, crop_hi: torch.Tensor, mask_size: int
-                 ) -> torch.Tensor:
-    """Dense one-axis interpolation matrices [..., out_size, mask_size]:
-    row p holds output pixel p's two bilinear tap weights (zeros outside
-    the pasted box); coinciding taps sum to (1-w) + w = 1."""
-    i0, i1, w, inside = _axis_taps(out_size, lo_px, hi_px, crop_lo, crop_hi,
-                                   mask_size)
-    iota = torch.arange(mask_size, dtype=torch.int32, device=lo_px.device)
+def _axis_matrix(taps, mask_size: int) -> torch.Tensor:
+    """Dense one-axis interpolation matrices [..., out_size, mask_size]
+    from ``_axis_taps``' tables: row p holds output pixel p's two bilinear
+    tap weights (zeros outside the pasted box); coinciding taps sum to
+    (1-w) + w."""
+    i0, i1, w, inside = taps
+    iota = torch.arange(mask_size, dtype=torch.int32, device=i0.device)
     m = ((iota == i0[..., None]) * (1.0 - w)[..., None]
          + (iota == i1[..., None]) * w[..., None])
     return m * inside[..., None]
@@ -107,39 +112,109 @@ def _check_precision(t: torch.Tensor) -> None:
                            "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
+def paste_taps(dets: torch.Tensor, mask_size: int, image_h: int,
+               image_w: int, net_size: int):
+    """The arithmetic both routes share: dets [..., D, 6] -> (valid
+    [..., D], taps), ``taps`` the tables (i0, i1, w, inside) of
+    ``_axis_taps`` for both axes at once, each [..., D, 2, L]: axis 0 the
+    photo's rows, axis 1 its columns, positions up to L = max(image_h,
+    image_w) (``axis_tables`` cuts each axis to its length).
+
+    Validity drops zero-score padding rows and boxes degenerate in
+    original pixels.
+    """
+    box_px = correct_boxes_device(dets[..., :4], image_h, image_w,
+                                  net_size, net_size)
+    valid = (dets[..., 5] > 0.0) & (
+        (box_px[..., 2] - box_px[..., 0])
+        * (box_px[..., 3] - box_px[..., 1]) > 0)
+    # crop window in score-map pixels
+    crop = torch.round(dets[..., :4].float() * mask_size).to(torch.int32)
+    taps = _axis_taps(max(image_h, image_w), box_px[..., :2], box_px[..., 2:],
+                      crop[..., :2], crop[..., 2:], mask_size)
+    return valid, taps
+
+
+def axis_tables(taps, axis: int, size: int):
+    """One axis of ``paste_taps``' tables: (i0, i1, w, inside), each
+    [..., D, size] (axis 0 rows, 1 columns)."""
+    return tuple(t[..., axis, :size] for t in taps)
+
+
+def paste_dense(masks: torch.Tensor, taps, valid: torch.Tensor,
+                image_h: int, image_w: int) -> torch.Tensor:
+    """The dense route, the CPU's and the oracle K5 is held against:
+    crop, bilinear resize, > 0.5 and paste as rowM [H0,S] @ mask [S,S] @
+    colM.T [S,W0] in float32, then the validity mask."""
+    s = masks.shape[-1]
+    rowm = _axis_matrix(axis_tables(taps, 0, image_h), s)     # [..., H0, S]
+    colm = _axis_matrix(axis_tables(taps, 1, image_w), s)     # [..., W0, S]
+    _check_precision(masks)
+    full = torch.matmul(torch.matmul(rowm, masks),
+                        colm.transpose(-1, -2)) > 0.5
+    # the float32 products and the tap matrices are freed before the
+    # masking allocates its output: they set the paste's peak memory
+    del rowm, colm
+    return full & valid[..., None, None]
+
+
+def _class_ids(classids: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(classids.to(torch.int32), 0, 255)
+
+
+def paste_masks_plain(masks: torch.Tensor, taps, valid: torch.Tensor,
+                      cls: torch.Tensor, image_h: int, image_w: int,
+                      semantic: bool):
+    """K5's plain version, the CPU route: the dense paste (span
+    ``paste.gemm``) and, with ``semantic``, the semantic map (span
+    ``paste.semantic``) -> (full, sem or None).  ``cls`` [..., D] int32
+    in [0, 255]."""
+    with span("paste.gemm"):
+        full = paste_dense(masks, taps, valid, image_h, image_w)
+    if not semantic:
+        return full, None
+    with span("paste.semantic"):
+        return full, merged_semantic_single(full, cls, valid)
+
+
+@custom_ops.paste_masks_op.register_kernel("cpu")
+def _(masks, i0, i1, w, inside, valid, cls, out_h, out_w, semantic):
+    full, sem = paste_masks_plain(masks, (i0, i1, w, inside), valid, cls,
+                                  out_h, out_w, semantic)
+    if sem is None:
+        sem = full.new_empty((full.shape[0], 0, 0), dtype=torch.uint8)
+    return full, sem
+
+
+def _paste(masks: torch.Tensor, dets: torch.Tensor, image_h: int,
+           image_w: int, net_size: int, semantic: bool):
+    with span("paste.taps"):
+        valid, taps = paste_taps(dets, masks.shape[-1], image_h, image_w,
+                                 net_size)
+        cls = _class_ids(dets[..., 4])
+    if not masks.is_cuda:
+        # called directly, not through the operator, so that the CPU
+        # route's spans sit beside ``paste.taps`` under the caller
+        full, sem = paste_masks_plain(masks, taps, valid, cls, image_h,
+                                      image_w, semantic)
+        return full, valid, sem
+    with span("paste.k5"):
+        full, sem = custom_ops.paste_masks_cuda(
+            masks, taps, valid, cls, image_h, image_w, semantic)
+    return full, valid, sem
+
+
 def paste_masks_single(masks: torch.Tensor, dets: torch.Tensor,
                        image_h: int, image_w: int, net_size: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masks [..., D, S, S] sigmoid + dets [..., D, 6] -> (full-res bool
     masks [..., D, image_h, image_w], valid [..., D]): crop, bilinear
-    resize, > 0.5 and paste as rowM [H0,S] @ mask [S,S] @ colM.T [S,W0],
-    in two spans, ``paste.taps`` and ``paste.gemm``
-    (``utils/profiling.py``).
-
-    Validity drops zero-score padding rows and boxes degenerate in
-    original pixels.
+    resize, > 0.5 and paste.  The tables of both axes are the span
+    ``paste.taps`` (``utils/profiling.py``); on CUDA kernel K5 pastes
+    (``custom_ops.paste_masks_cuda``, the span ``paste.k5``), on the CPU
+    the dense route (``paste_masks_plain``, the span ``paste.gemm``).
     """
-    with span("paste.taps"):
-        box_px = correct_boxes_device(dets[..., :4], image_h, image_w,
-                                      net_size, net_size)
-        valid = (dets[..., 5] > 0.0) & (
-            (box_px[..., 2] - box_px[..., 0])
-            * (box_px[..., 3] - box_px[..., 1]) > 0)
-        s = masks.shape[-1]
-        # crop window in score-map pixels
-        crop = torch.round(dets[..., :4].float() * s).to(torch.int32)
-        rowm = _axis_matrix(image_h, box_px[..., 0], box_px[..., 2],
-                            crop[..., 0], crop[..., 2], s)    # [..., H0, S]
-        colm = _axis_matrix(image_w, box_px[..., 1], box_px[..., 3],
-                            crop[..., 1], crop[..., 3], s)    # [..., W0, S]
-    with span("paste.gemm"):
-        _check_precision(masks)
-        full = torch.matmul(torch.matmul(rowm, masks),
-                            colm.transpose(-1, -2)) > 0.5
-        # the float32 products and the tap matrices are freed before the
-        # masking allocates its output: they set the paste's peak memory
-        del rowm, colm
-        full = full & valid[..., None, None]
+    full, valid, _ = _paste(masks, dets, image_h, image_w, net_size, False)
     return full, valid
 
 
@@ -152,7 +227,7 @@ def merged_semantic_single(full_masks: torch.Tensor, classids: torch.Tensor,
     first, and the winner's class is enc & 255.
     """
     d = full_masks.shape[-3]
-    cls = torch.clamp(classids.to(torch.int32), 0, 255)
+    cls = _class_ids(classids)
     order = torch.arange(1, d + 1, dtype=torch.int32, device=cls.device)
     enc = ((order * 256 + cls) * valid.to(torch.int32))[..., None, None]
     win = torch.amax(torch.where(full_masks, enc, 0), dim=-3)
@@ -162,12 +237,10 @@ def merged_semantic_single(full_masks: torch.Tensor, classids: torch.Tensor,
 def paste_masks_batch(masks: torch.Tensor, dets: torch.Tensor,
                       image_h: int, image_w: int, net_size: int):
     """[B,D,S,S] + [B,D,6] -> (bool [B,D,H0,W0], valid [B,D],
-    semantic [B,H0,W0] uint8); the semantic map is the span
+    semantic [B,H0,W0] uint8).  On CUDA K5 writes the semantic map in the
+    same pass as the masks; on the CPU it is the span
     ``paste.semantic``."""
-    full, valid = paste_masks_single(masks, dets, image_h, image_w, net_size)
-    with span("paste.semantic"):
-        sem = merged_semantic_single(full, dets[..., 4], valid)
-    return full, valid, sem
+    return _paste(masks, dets, image_h, image_w, net_size, True)
 
 
 def pack_mask_bits(m: torch.Tensor) -> torch.Tensor:

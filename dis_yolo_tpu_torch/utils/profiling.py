@@ -30,13 +30,18 @@ Spans of the serving path (each ``dis_yolo.``-prefixed):
   box_drop          the degenerate-box drop
   assemble          K1 (or the gather route)
   paste.taps        ``paste.paste_masks_batch``: boxes to original
-                    pixels, validity, the two interpolation matrices
-  paste.gemm        the two products, ``> 0.5`` and the validity mask
-  paste.semantic    the per-class semantic map
+                    pixels, validity, the tap tables of both axes (and
+                    on CUDA the clamped class ids)
+  paste.k5          on CUDA: K5, the masks, ``> 0.5``, the validity mask
+                    and the semantic map in one launch
+  paste.gemm        on the CPU: the two interpolation matrices, the two
+                    products, ``> 0.5`` and the validity mask
+  paste.semantic    on the CPU: the per-class semantic map
 
 The three forward spans tile ``DISYolo.forward``; ``decode``, ``nms``,
-``box_drop`` and ``assemble`` tile ``predict_from_outputs``; the three
-paste spans tile ``paste_masks_batch``.
+``box_drop`` and ``assemble`` tile ``predict_from_outputs``; the paste
+spans tile ``paste_masks_batch``: ``paste.taps`` and ``paste.k5`` on
+CUDA, ``paste.taps``, ``paste.gemm`` and ``paste.semantic`` on the CPU.
 
 Counters:
 
@@ -48,8 +53,8 @@ Counters:
                       with a stream sync (on CUDA)
   sync.paste          list indices copied to the card in
                       ``paste.correct_boxes_device`` (on CUDA)
-  kernel.k1 .. k4     launches of K1 (assembly), K2 (NMS), K3 (assembly
-                      backward), K4 (channel extraction)
+  kernel.k1 .. k5     launches of K1 (assembly), K2 (NMS), K3 (assembly
+                      backward), K4 (channel extraction), K5 (paste)
 
 Each ``sync.*`` count is one wait of the host for the card's stream:
 with the driver's fetch of the results they are every host sync of a
