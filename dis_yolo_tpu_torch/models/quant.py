@@ -15,11 +15,18 @@ The int8 conv is not one of the JAX package's Pallas kernels (XLA's
 ``conv_general_dilated`` with an int32 result computes it there), so it
 is a stock call here: the int8 input is padded ('SAME', in the int8
 domain, where 0 stays 0) and unfolded into an im2col matrix, and
-``torch._int_mm`` multiplies it with the [Cout, kh*kw*Cin] weights
-(cuBLASLt's int8 tensor-core GEMM on CUDA) into int32.  The sums are
-exact; a float32 conv would not be (a 3x3x1024 layer sums up to
-9216 * 127^2 ~ 1.5e8 per output, past 2^24).  The im2col matrix costs
-kh*kw times the layer's int8 input in device memory.
+``torch._int_mm`` multiplies it with the [Cout, kh*kw*Cin] weights into
+int32.  On an H100 a profiler trace shows that GEMM as CUTLASS's sm80
+int8 tensor-core kernels (``cutlass_80_tensorop_i16832gemm_s8_*``), not
+Hopper's own.  The sums are exact; a float32 conv would not be (a
+3x3x1024 layer sums up to 9216 * 127^2 ~ 1.5e8 per output, past 2^24).
+The im2col matrix costs kh*kw times the layer's int8 input in device
+memory.
+
+Spans and counters (``utils/profiling.py``): each int8 layer's forward
+is four spans, ``quant.quantize``, ``quant.im2col``, ``quant.int_mm``
+and ``quant.dequant``; while spans are on it also counts
+``quant.layers``, ``quant.im2col_bytes`` and ``quant.int_mm_ops``.
 
 Height sharding (``layers.height_sharded``, ``parallel/spatial.py``):
 ``QuantConv`` quantizes its rows, then takes its halo from the rows'
@@ -45,6 +52,8 @@ from torch import nn
 
 from dis_yolo_tpu_torch.models.layers import (_same_pad, conv_same, halo_rows,
                                               leaky_relu)
+from dis_yolo_tpu_torch.utils import profiling
+from dis_yolo_tpu_torch.utils.profiling import span
 
 
 def quantize_input(x: torch.Tensor, inv_sx: torch.Tensor) -> torch.Tensor:
@@ -76,21 +85,28 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
     ph = _same_pad(h, kh, stride) if pad_rows else (0, 0)
     pw = _same_pad(w, kw, stride)
     ho, wo = (h + ph[0] + ph[1] - kh) // stride + 1, -(-w // stride)
-    if kh == kw == 1 and stride == 1:
-        cols = x_q.reshape(b * h * w, cin)
-    else:
-        xp = F.pad(x_q, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-        taps = [xp[:, i:i + (ho - 1) * stride + 1:stride,
-                   j:j + (wo - 1) * stride + 1:stride, :]
-                for i in range(kh) for j in range(kw)]
-        cols = torch.cat(taps, dim=-1).reshape(b * ho * wo, kh * kw * cin)
-    w_nk = w_q.permute(0, 2, 3, 1).reshape(cout, kh * kw * cin)
-    m, k = cols.shape
-    k8, n8 = -(-k // 8) * 8, -(-cout // 8) * 8
-    cols = _pad_to(_pad_to(cols, 1, k8), 0, 17)
-    w_nk = _pad_to(_pad_to(w_nk, 1, k8), 0, n8)
-    acc = torch._int_mm(cols.contiguous(), w_nk.contiguous().t())
-    return acc[:m, :cout].reshape(b, ho, wo, cout)
+    unfold = not (kh == kw == 1 and stride == 1)
+    with span("quant.im2col"):
+        if unfold:
+            xp = F.pad(x_q, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+            taps = [xp[:, i:i + (ho - 1) * stride + 1:stride,
+                       j:j + (wo - 1) * stride + 1:stride, :]
+                    for i in range(kh) for j in range(kw)]
+            cols = torch.cat(taps, dim=-1).reshape(b * ho * wo,
+                                                   kh * kw * cin)
+        else:
+            cols = x_q.reshape(b * h * w, cin)
+        w_nk = w_q.permute(0, 2, 3, 1).reshape(cout, kh * kw * cin)
+        m, k = cols.shape
+        k8, n8 = -(-k // 8) * 8, -(-cout // 8) * 8
+        cols = _pad_to(_pad_to(cols, 1, k8), 0, 17).contiguous()
+        w_nk = _pad_to(_pad_to(w_nk, 1, k8), 0, n8).contiguous()
+    if profiling.on():
+        profiling.count("quant.im2col_bytes", m * k if unfold else 0)
+        profiling.count("quant.int_mm_ops", 2 * m * k * cout)
+    with span("quant.int_mm"):
+        acc = torch._int_mm(cols, w_nk.t())
+        return acc[:m, :cout].reshape(b, ho, wo, cout)
 
 
 def record_input_scale(x: torch.Tensor, pct: float) -> Dict[str, torch.Tensor]:
@@ -145,15 +161,19 @@ class QuantConv(nn.Module):
                 else record_input_scale(x, self.calib_pct)
             y = conv_same(x.to(self.dtype), self.conv.weight.to(self.dtype),
                           self.conv.bias.to(self.dtype), self.stride, shard)
-        else:
-            y = (self.accumulate(x).float() * self.s_out
-                 + self.bias).permute(0, 3, 1, 2)
-        return leaky_relu(y.to(self.dtype), self.alpha)
+            return leaky_relu(y.to(self.dtype), self.alpha)
+        if profiling.on():
+            profiling.count("quant.layers")
+        acc = self.accumulate(x)
+        with span("quant.dequant"):
+            y = (acc.float() * self.s_out + self.bias).permute(0, 3, 1, 2)
+            return leaky_relu(y.to(self.dtype), self.alpha)
 
     def accumulate(self, x: torch.Tensor) -> torch.Tensor:
         """The int32 accumulator [B, Ho, Wo, Cout] of NCHW ``x``: this
         rank's output rows under a height shard."""
-        x_q = quantize_input(x, self.inv_sx)
+        with span("quant.quantize"):
+            x_q = quantize_input(x, self.inv_sx)
         if self.height_shard is None:
             return int8_conv(x_q, self.w_q, self.stride)
         rows, empty = halo_rows(x_q.permute(0, 3, 1, 2), self.w_q.shape[-1],

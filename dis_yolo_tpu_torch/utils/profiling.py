@@ -37,11 +37,20 @@ Spans of the serving path (each ``dis_yolo.``-prefixed):
   paste.gemm        on the CPU: the two interpolation matrices, the two
                     products, ``> 0.5`` and the validity mask
   paste.semantic    on the CPU: the per-class semantic map
+  quant.quantize    in each int8 ``QuantConv`` (``models/quant.py``): its
+                    input to NHWC int8
+  quant.im2col      the int8 padding and the unfold into the im2col
+                    matrix (a 1x1 stride-1 layer's input is its matrix)
+  quant.int_mm      ``torch._int_mm``, the s8 x s8 -> s32 GEMM
+  quant.dequant     the float32 dequantization, the bias, the cast to the
+                    compute dtype and the leaky ReLU
 
 The three forward spans tile ``DISYolo.forward``; ``decode``, ``nms``,
 ``box_drop`` and ``assemble`` tile ``predict_from_outputs``; the paste
 spans tile ``paste_masks_batch``: ``paste.taps`` and ``paste.k5`` on
 CUDA, ``paste.taps``, ``paste.gemm`` and ``paste.semantic`` on the CPU.
+The four ``quant.*`` spans tile an int8 layer's forward, inside the
+forward's spans.
 
 Counters:
 
@@ -55,6 +64,13 @@ Counters:
                       ``paste.correct_boxes_device`` (on CUDA)
   kernel.k1 .. k5     launches of K1 (assembly), K2 (NMS), K3 (assembly
                       backward), K4 (channel extraction), K5 (paste)
+  quant.layers        int8 ``QuantConv`` forwards
+  quant.im2col_bytes  bytes of the im2col matrices they build
+  quant.int_mm_ops    their GEMMs' operations, 2 M N K each (the shapes
+                      before ``_int_mm``'s zero padding)
+
+The ``quant.*`` counters count only while spans are on (``on()``): off,
+an int8 layer pays one global read for them.
 
 Each ``sync.*`` count is one wait of the host for the card's stream:
 with the driver's fetch of the results they are every host sync of a
@@ -85,6 +101,11 @@ def span(name: str):
     if not _ON or _traced():
         return _NOOP
     return torch.profiler.record_function("dis_yolo." + name)
+
+
+def on() -> bool:
+    """True while spans are on and no compiler traces."""
+    return _ON and not _traced()
 
 
 def count(name: str, n: int = 1) -> None:
